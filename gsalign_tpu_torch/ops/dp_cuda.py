@@ -15,88 +15,30 @@ launches its kernel or raises: a build or launch failure is an error, never
 a silent fallback. Each wrapper counts its launches in `.launches`.
 
 The kernels are compiled with nvcc from csrc/ at first use (route: plain C
-entry points, loaded with ctypes) into this package's _build/ directory.
+entry points, loaded with ctypes; see ops/cuda_build.py).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-import time
 
 import torch
 
+from gsalign_tpu_torch.ops import cuda_build
 from gsalign_tpu_torch.ops import dp as dp_ops
 
 SMALL_MAX_L = 256          # dp_small keeps L*L + 6L bytes in shared memory
 STATE_SMEM_MAX_L = 32768   # dp_any keeps its 6L state bytes on chip up to here
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_CSRC = os.path.join(_PKG_DIR, "csrc", "dp.cu")
-_BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
-
-_lock = threading.Lock()
-_lib = None
-build_info: dict = {}      # seconds, path, ptxas report of the last build
-
-
-def _find_nvcc() -> str:
-    """nvcc on PATH, else under the CUDA toolkit that torch locates."""
-    nvcc = shutil.which("nvcc")
-    if nvcc is None:
-        from torch.utils.cpp_extension import CUDA_HOME
-        if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin",
-                                                     "nvcc")):
-            nvcc = os.path.join(CUDA_HOME, "bin", "nvcc")
-    if nvcc is None:
-        raise RuntimeError("nvcc not found: the DP kernels cannot be built")
-    return nvcc
+_vp, _ci = ctypes.c_void_p, ctypes.c_int
 
 
 def build() -> ctypes.CDLL:
-    """Compile csrc/dp.cu (once per source version) and load it."""
-    global _lib
-    with _lock:
-        if _lib is not None:
-            return _lib
-        with open(_CSRC, "rb") as fh:
-            digest = hashlib.sha256(fh.read()).hexdigest()[:16]
-        path = os.path.join(_BUILD_DIR, f"libgsalign_dp_{digest}.so")
-        t0 = time.time()
-        if not os.path.exists(path):
-            os.makedirs(_BUILD_DIR, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-            os.close(fd)
-            try:
-                res = subprocess.run(
-                    [_find_nvcc()] + _NVCC_FLAGS + ["-o", tmp, _CSRC],
-                    capture_output=True, text=True)
-                if res.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed on {_CSRC}:\n{res.stderr}")
-                os.replace(tmp, path)
-                build_info["ptxas"] = res.stderr
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
-        build_info["seconds"] = time.time() - t0
-        build_info["path"] = path
-        lib = ctypes.CDLL(path)
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.gsalign_dp_small.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp]
-        lib.gsalign_dp_small.restype = ci
-        lib.gsalign_dp_any.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp, vp,
-                                       vp]
-        lib.gsalign_dp_any.restype = ci
-        _lib = lib
-        return lib
+    """Build (see ops/cuda_build.py) and load csrc/dp.cu."""
+    return cuda_build.bind("dp", {
+        "gsalign_dp_small": [_vp, _vp, _vp, _vp, _ci, _ci, _vp, _vp],
+        "gsalign_dp_any": [_vp, _vp, _vp, _vp, _ci, _ci, _vp, _vp, _vp,
+                           _vp]})
 
 
 def _check(q, t, ql, tl, L):
@@ -117,15 +59,6 @@ def _check(q, t, ql, tl, L):
         raise ValueError(f"unsupported device {q.device}")
 
 
-def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
-def _raise_on(err: int, name: str):
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-
-
 def dp_small(q, t, ql, tl, L: int) -> torch.Tensor:
     """Kernel dp_small (L <= SMALL_MAX_L). Lengths are clamped to [0, L]
     on the device."""
@@ -138,9 +71,9 @@ def dp_small(q, t, ql, tl, L: int) -> torch.Tensor:
     B = q.shape[0]
     out = torch.empty((B, 2 * L), dtype=torch.uint8, device=q.device)
     if B:
-        _raise_on(lib.gsalign_dp_small(
+        cuda_build.raise_on(lib.gsalign_dp_small(
             q.data_ptr(), t.data_ptr(), ql.data_ptr(), tl.data_ptr(), B, L,
-            out.data_ptr(), _stream(q.device)), "dp_small")
+            out.data_ptr(), cuda_build.stream(q.device)), "dp_small")
         dp_small.launches += 1
     return out
 
@@ -161,11 +94,11 @@ def dp_any(q, t, ql, tl, L: int) -> torch.Tensor:
         dirs = torch.empty(B * L * L, dtype=torch.uint8, device=q.device)
         state = (torch.empty(B * 6 * L, dtype=torch.int8, device=q.device)
                  if L > STATE_SMEM_MAX_L else None)
-        _raise_on(lib.gsalign_dp_any(
+        cuda_build.raise_on(lib.gsalign_dp_any(
             q.data_ptr(), t.data_ptr(), ql.data_ptr(), tl.data_ptr(), B, L,
             out.data_ptr(), dirs.data_ptr(),
             None if state is None else state.data_ptr(),
-            _stream(q.device)), "dp_any")
+            cuda_build.stream(q.device)), "dp_any")
         dp_any.launches += 1
     return out
 

@@ -1,21 +1,25 @@
 """FM-index rank tables on a torch device, and the rank queries of the scan.
 
 DeviceFMIndex.from_host lays out, array by array, the same tables as the
-JAX package's ops/rank.DeviceFMIndex.from_host (narrow layout, full suffix
-array): the single-char rank rows, the fused order-3 rows with their major
+JAX package's ops/rank.DeviceFMIndex.from_host (narrow layout): the
+single-char rank rows, the fused order-3 rows with their major
 checkpoints, the packed (lo | sz << 32) class-pair table with the INIT
-jump rows, the INIT short-suffix corrections, the overlapping text windows
-and the suffix array. 32-bit packed words are held in int64 tensors (torch
-has no usable uint32 arithmetic); values the JAX package keeps in int64
-stay int64.
+jump rows and the INIT short-suffix corrections; then either (full suffix
+array, "direct") the overlapping text windows and the 1024-padded suffix
+array, or (sampled suffix array) the SA samples, which resolve_sa reaches
+by LF walks. 32-bit packed words are held in int64 tensors (torch has no
+usable uint32 arithmetic); values the JAX package keeps in int64 stay
+int64.
 
-Wide (seq_len >= 2^31) and sampled-SA indexes, and the LF-walk resolve_sa
-they need, are not ported yet (ROADMAP queue 1 item 7, queue 2 item 5).
+Wide (seq_len >= 2^31) indexes are not ported yet (ROADMAP queue 1 item 7).
+lf_t3 and resolve_sa here are the plain torch versions of the resolve_sa
+kernel (ops/seed_cuda.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -49,12 +53,18 @@ class DeviceFMIndex:
     t3_exc_chr: torch.Tensor  # int64 [3]
     comb_pairs: torch.Tensor  # int64 [comb_rows(init_order)]
     init_corr: torch.Tensor   # int64 [12], padded with -1
+    # direct (full SA) indexes: the text windows and the suffix array;
+    # [1, 1] and [1] dummies for sampled ones
     text_rows: torch.Tensor   # int64 [ceil(2N/1024), 128] (uint32 words)
     sa_rows: torch.Tensor     # int32 [pad1024(seq_len+1)]
-    host_sa: np.ndarray       # the suffix array on the host (hit expansion)
+    # sampled indexes: SA_full[k] for k % sa_intv == 0; [1] dummy if direct
+    sa_samples: torch.Tensor  # int32 [ceil((seq_len+1)/sa_intv)]
+    host_sa: Optional[np.ndarray]   # full SA on the host (None if sampled)
     seq_len: int
     primary: int
     init_order: int           # INIT jump k-mer order (10 or 12)
+    sa_intv: int
+    direct_ok: bool           # full SA: direct extension, host hit expansion
 
     @property
     def device(self) -> torch.device:
@@ -67,10 +77,10 @@ class DeviceFMIndex:
             raise NotImplementedError(
                 "wide (seq_len >= 2^31) indexes are not ported yet "
                 "(ROADMAP queue 1 item 7)")
-        if fm.sa_intv != 1 or fm.genome is None:
+        if fm.genome is None:
             raise NotImplementedError(
-                "sampled-SA indexes need resolve_sa, not ported yet "
-                "(ROADMAP queue 2 item 5)")
+                "the device tables need the index's genome")
+        direct_ok = fm.sa_intv == 1
         from gsalign_tpu_torch.index.fmindex import pack_bwt_codes
         n3 = fm.t3_cp.shape[0]
         n1 = fm.occ_cp.shape[0]
@@ -95,15 +105,20 @@ class DeviceFMIndex:
             lut[132 + c, 0] = l2[c] + 1
         lut[68:132, 0] = c64[:64]
 
-        # four overlapping 512-base windows (own 16 words + 256-base
-        # lookahead) per row: row r >> 2, quarter r & 3 = words [16r, 16r+32)
         text = fm.genome.codes_fwd_rc()
-        n_rows_t = -(-fm.seq_len // 256)
-        n4 = -(-n_rows_t // 4)
-        padded = np.zeros((n4 * 4 + 1) * 256, dtype=np.uint8)
-        padded[:fm.seq_len] = text
-        pk = pack_bwt_codes(padded).reshape(n4 * 4 + 1, 16)
-        text_rows = np.concatenate([pk[:-1], pk[1:]], axis=1).reshape(n4, 128)
+        if direct_ok:
+            # four overlapping 512-base windows (own 16 words + 256-base
+            # lookahead) per row: row r >> 2, quarter r & 3 = words
+            # [16r, 16r+32)
+            n_rows_t = -(-fm.seq_len // 256)
+            n4 = -(-n_rows_t // 4)
+            padded = np.zeros((n4 * 4 + 1) * 256, dtype=np.uint8)
+            padded[:fm.seq_len] = text
+            pk = pack_bwt_codes(padded).reshape(n4 * 4 + 1, 16)
+            text_rows = np.concatenate([pk[:-1], pk[1:]],
+                                       axis=1).reshape(n4, 128)
+        else:
+            text_rows = np.zeros((1, 1), dtype=np.uint32)
 
         c8 = fm.c8
         if c8 is None:                     # pre-v4 in-memory index
@@ -134,28 +149,36 @@ class DeviceFMIndex:
         comb = (lo.astype(np.uint64)
                 | (sz.astype(np.uint64) << np.uint64(32))).view(np.int64)
         n_sa = fm.sa_samples.shape[0]
-        sa_rows = np.zeros(-(-n_sa // SA_ROW_BLOCK) * SA_ROW_BLOCK,
-                           dtype=np.int32)
-        sa_rows[:n_sa] = fm.sa_samples
+        if direct_ok:
+            sa_rows = np.zeros(-(-n_sa // SA_ROW_BLOCK) * SA_ROW_BLOCK,
+                               dtype=np.int32)
+            sa_rows[:n_sa] = fm.sa_samples
+            sa_samples = np.zeros(1, dtype=np.int32)
+        else:
+            sa_rows = np.zeros(1, dtype=np.int32)
+            sa_samples = np.asarray(fm.sa_samples, dtype=np.int32)
         return dict(union=union, t3=rows3, t3_major=major3,
                     l2=l2, c64=c64,
                     t3_exc_pos=np.asarray(fm.t3_exc_pos, dtype=np.int64),
                     t3_exc_chr=np.asarray(fm.t3_exc_chr, dtype=np.int64),
                     comb_pairs=comb, init_corr=corr, text_rows=text_rows,
-                    sa_rows=sa_rows, init_order=init_order)
+                    sa_rows=sa_rows, sa_samples=sa_samples,
+                    init_order=init_order, sa_intv=int(fm.sa_intv),
+                    direct_ok=direct_ok)
 
     @staticmethod
     def from_host(fm: FMIndex, device="cpu") -> "DeviceFMIndex":
         """Build the tables on the host and put them on `device`."""
         tabs = DeviceFMIndex.host_tables(fm)
         return DeviceFMIndex.from_tables(
-            tabs, host_sa=np.asarray(fm.sa_samples), seq_len=fm.seq_len,
-            primary=fm.primary, device=device)
+            tabs, host_sa=np.asarray(fm.sa_samples) if tabs["direct_ok"]
+            else None, seq_len=fm.seq_len, primary=fm.primary, device=device)
 
     @staticmethod
-    def from_tables(tabs: dict, host_sa: np.ndarray, seq_len: int,
+    def from_tables(tabs: dict, host_sa: Optional[np.ndarray], seq_len: int,
                     primary: int, device="cpu") -> "DeviceFMIndex":
-        """Upload numpy tables (uint32 words widen to int64)."""
+        """Upload numpy tables (uint32 words widen to int64). host_sa is
+        the full suffix array of a direct index, None for a sampled one."""
         dev = torch.device(device)
 
         def up(name, dtype=torch.int64):
@@ -169,21 +192,27 @@ class DeviceFMIndex:
             l2=up("l2"), c64=up("c64"), t3_exc_pos=up("t3_exc_pos"),
             t3_exc_chr=up("t3_exc_chr"), comb_pairs=up("comb_pairs"),
             init_corr=up("init_corr"), text_rows=up("text_rows"),
-            sa_rows=up("sa_rows", torch.int32), host_sa=host_sa,
+            sa_rows=up("sa_rows", torch.int32),
+            sa_samples=up("sa_samples", torch.int32), host_sa=host_sa,
             seq_len=int(seq_len), primary=int(primary),
-            init_order=int(tabs["init_order"]))
+            init_order=int(tabs["init_order"]), sa_intv=int(tabs["sa_intv"]),
+            direct_ok=bool(tabs["direct_ok"]))
 
 
 def tables_from_jax(jdfm) -> dict:
     """The JAX package's DeviceFMIndex arrays as numpy, keyed like
     DeviceFMIndex.host_tables (for the parity tests)."""
-    if jdfm.wide or not jdfm.direct_ok:
-        raise NotImplementedError("only narrow full-SA indexes are ported")
+    if jdfm.wide:
+        raise NotImplementedError(
+            "wide (seq_len >= 2^31) indexes are not ported yet "
+            "(ROADMAP queue 1 item 7)")
     out = {f: np.asarray(getattr(jdfm, f))
            for f in ("union", "t3", "t3_major", "l2", "c64", "t3_exc_pos",
                      "t3_exc_chr", "comb_pairs", "init_corr", "text_rows",
-                     "sa_rows")}
+                     "sa_rows", "sa_samples")}
     out["init_order"] = int(jdfm.init_order)
+    out["sa_intv"] = int(jdfm.sa_intv)
+    out["direct_ok"] = bool(jdfm.direct_ok)
     return out
 
 
@@ -342,3 +371,46 @@ def extend_rc(dfm: DeviceFMIndex, ik1: torch.Tensor, ik2: torch.Tensor,
 def init_interval(dfm: DeviceFMIndex, p: torch.Tensor):
     """Initial bi-interval for a single base p (src/bwt_search.cpp:149-152)."""
     return (dfm.l2[p] + 1, dfm.l2[3 - p] + 1, dfm.l2[p + 1] - dfm.l2[p])
+
+
+def lf_t3(dfm: DeviceFMIndex, k: torch.Tensor) -> torch.Tensor:
+    """Batched LF mapping over SA_full rank space via the order-3 table:
+    the rank whose suffix is one position to the left (bwt_invPsi
+    semantics, src/bwt_search.cpp:121-127). LF(k) = L2[c] + 1 +
+    strict_rank1(c, k) for c the char preceding row k's suffix; the SA == 0
+    row maps to the sentinel row 0. k int64 [B]."""
+    inb = k & 127
+    w = dfm.t3[k >> 7, 32 + (inb >> 2)]
+    c = (w >> ((3 - (inb & 3)) * 8)) & 3
+    # rows with SA < 3 store sym 0: fix the char. The SA == 0 row (the
+    # primary) has none (its t3_exc_chr is -1, stored as 255 by the index
+    # build) and maps to row 0 below.
+    for i in range(3):
+        c = torch.where((k == dfm.t3_exc_pos[i]) & (k != dfm.primary),
+                        dfm.t3_exc_chr[i], c)
+    rank = occ_t3(dfm, k, torch.zeros_like(k, dtype=torch.bool), c)
+    out = dfm.l2[c] + 1 + rank
+    return torch.where(k == dfm.primary, 0, out)
+
+
+def sa_table(dfm: DeviceFMIndex) -> torch.Tensor:
+    """The int32 SA plane that resolve_sa reads: every row (direct) or
+    every sa_intv-th row (sampled)."""
+    return dfm.sa_rows if dfm.direct_ok else dfm.sa_samples
+
+
+def resolve_sa(dfm: DeviceFMIndex, k: torch.Tensor) -> torch.Tensor:
+    """Batched bwt_sa (src/bwt_search.cpp:129-139), plain torch: LF-walk
+    each rank to the nearest sampled one (k % sa_intv == 0), then add the
+    stored SA value, mod seq_len + 1. k int64 [B] -> int64 [B]. With a
+    full SA it is one gather."""
+    mask = dfm.sa_intv - 1
+    steps = torch.zeros_like(k)
+    while True:
+        active = (k & mask) != 0
+        if not bool(active.any()):
+            break
+        k = torch.where(active, lf_t3(dfm, k), k)
+        steps = steps + active.to(steps.dtype)
+    base = sa_table(dfm)[k >> (dfm.sa_intv.bit_length() - 1)].to(k.dtype)
+    return (steps + base) % (dfm.seq_len + 1)

@@ -5,8 +5,7 @@ match through the FM-index one base at a time and restarting after each
 emitted seed (src/GSAlign.cpp:51-107, src/bwt_search.cpp:141-185). Chunks are
 independent (extension is clipped at the chunk end), so each chunk is a
 lane here, and every lane runs the same state machine in lock step: one
-iteration of the loop in _scan is a handful of [B]-wide torch ops on the
-device for all lanes at once.
+iteration of the loop in _scan is one seed_step over all lanes.
 
 Lane state machine (exact emulation of IdentifyLocalMEM + BWT_Search):
   INIT: read code[cursor]; ambiguous -> cursor+1; else start extension.
@@ -23,19 +22,32 @@ Shortcuts that keep the seed set exact (as in the JAX package):
            bases is one row of comb_pairs; an empty row proves a miss.
   Triples: EXT steps consume three bases per rank query through the
            order-3 table whenever three unambiguous in-chunk bases remain.
-  Direct:  once the interval is unique, the lane resolves its occurrence
-           (one SA gather) and compares 256 query bases against the packed
-           text per iteration; the hit records the resolved position
-           (k0 < 0 encodes it) instead of a rank.
+  Direct:  on a full-SA index, once the interval is unique, the lane
+           resolves its occurrence (one SA read) and compares 256 query
+           bases against the packed text per iteration; the hit records
+           the resolved position (k0 < 0 encodes it) instead of a rank.
+           Sampled-SA indexes have no direct mode; their hits are resolved
+           afterwards by resolve_sa's LF walks.
 
-The JAX package's speculative segments, halving-width lane cascade,
-power-of-two lane padding and alternative SA-gather modes are not carried:
-one lane per chunk, one loop. A full emit buffer poisons its lane, which
-is re-scanned from the poison position in a further round.
+How a lane entering direct mode reads its SA word (sa_mode, from
+GSALIGN_SA_MODE as the JAX package's _pick_sa_mode): "xla" (the default)
+reads sa_rows directly; "pallas" compacts the entering lanes, in lane
+order, into _SA_GATHER_K slots and reads them with one masked_gather
+(the port of gather_pallas), and a lane beyond the slots stalls for one
+iteration. Stalls change the iteration count, never the seeds.
+
+One step is seed_step (ops/seed_cuda.py): the hand-written kernel on a
+CUDA device, seed_step_plain (here) on the CPU. The JAX package's
+speculative segments, halving-width lane cascade, power-of-two lane
+padding and its "xlak" and "pallas_interp" SA modes are not carried: one
+lane per chunk, one loop. A full emit buffer poisons its lane, which is
+re-scanned from the poison position in a further round.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
 from typing import Optional
 
 import numpy as np
@@ -108,118 +120,177 @@ def _clz32(x: torch.Tensor) -> torch.Tensor:
     return n
 
 
-def _scan(dfm: DeviceFMIndex, q_rows: torch.Tensor, starts: np.ndarray,
-          stops: np.ndarray, min_seed_length: int, max_seed_freq: int,
-          sensitive: bool, max_out: int):
-    """Run every lane [starts[i], stops[i]) to completion. Returns host
-    arrays (qs_rel, ls, k0, fr, lane, exits, poison, n_iter): the hits in
-    lane-major order with their lane index, and per lane the final cursor
-    and poison position."""
-    if min_seed_length <= 3:
-        raise ValueError("the triple-step shortcuts need min_seed_length > 3")
-    dev = q_rows.device
+# rows of the lane-state tensor (int64 [N_FIELDS, B]); csrc/seed.cu reads
+# the same rows
+(F_PHASE, F_CURSOR, F_EXT_START, F_EXT_POS, F_IK1, F_IK2, F_TRI_FAILED,
+ F_DIR_SET, F_DIR_OFF, F_OUT_N, F_POISON) = range(11)
+N_FIELDS = 11
+
+SA_MODES = ("none", "xla", "pallas")   # the kernel's mode argument: index
+_SA_GATHER_K = 512     # pallas-mode compaction slots per iteration (tests
+                       # shrink it to exercise the stall-retry path)
+
+
+def pick_sa_mode(dfm: DeviceFMIndex) -> str:
+    """The direct-mode SA read: GSALIGN_SA_MODE "xla" (the default when
+    unset) or "pallas"; "none" for an index without direct mode. Any other
+    value raises."""
+    env = os.environ.get("GSALIGN_SA_MODE") or "xla"
+    if env not in ("xla", "pallas"):
+        raise ValueError(f"GSALIGN_SA_MODE must be xla or pallas, got "
+                         f"{env!r} (the JAX package's xlak and pallas_interp "
+                         f"are not carried)")
+    return env if dfm.direct_ok else "none"
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanParams:
+    min_seed_length: int
+    max_seed_freq: int
+    sensitive: bool
+    max_out: int
+    sa_mode: str          # one of SA_MODES
+
+
+@dataclasses.dataclass
+class ScanLanes:
+    """The device state of one scan round, updated in place by seed_step."""
+    starts: torch.Tensor  # int64 [B]
+    stops: torch.Tensor   # int64 [B]
+    st: torch.Tensor      # int64 [N_FIELDS, B] lane state (F_* rows)
+    out: torch.Tensor     # int64 [B, max_out, 3] records (meta, k0, freq)
+    live: torch.Tensor    # int32 [2] the kernel's live-lane counters
+
+    @staticmethod
+    def start(starts: np.ndarray, stops: np.ndarray, max_out: int,
+              device) -> "ScanLanes":
+        B = len(starts)
+        st = np.zeros((N_FIELDS, B), dtype=np.int64)
+        st[F_CURSOR] = starts
+        st[F_POISON] = POISON_NONE
+
+        def up(a):
+            return torch.as_tensor(np.asarray(a, dtype=np.int64),
+                                   device=device)
+
+        return ScanLanes(
+            starts=up(starts), stops=up(stops), st=up(st),
+            out=torch.zeros((B, max_out, 3), dtype=torch.int64,
+                            device=device),
+            live=torch.zeros(2, dtype=torch.int32, device=device))
+
+
+def seed_step_plain(dfm: DeviceFMIndex, q_rows: torch.Tensor,
+                    lanes: ScanLanes, prm: ScanParams, it: int = 0,
+                    slot: Optional[torch.Tensor] = None,
+                    res_k: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One lock-step iteration of every lane, plain torch: updates
+    lanes.st and lanes.out in place and returns the number of lanes still
+    live (a 0-d tensor). In pallas mode slot (int64 [B], -1 for none) and
+    res_k (int32 [K]) carry the compacted SA reads (_sa_slots). `it` is the
+    kernel's counter parity, unused here."""
     i64 = torch.int64
-    B = len(starts)
+    st = lanes.st
+    starts_t, stops_t = lanes.starts, lanes.stops
+    B = st.shape[1]
     order = dfm.init_order
-    use_init = min_seed_length > order
+    use_init = prm.min_seed_length > order
     # INIT-8 is only emission-exact when any sub-8 match is a sure miss
-    use8 = min_seed_length > 8
+    use8 = prm.min_seed_length > 8
     n_sa = dfm.seq_len + 1
     n_look = q_rows.shape[0] * 256
     seq_len = dfm.seq_len
+    max_out = prm.max_out
     init_mask = (M32 << (32 - 2 * order)) & M32
+    no = torch.zeros(B, dtype=torch.bool, device=st.device)
+    phase, cursor, ext_start, ext_pos = (st[F_PHASE], st[F_CURSOR],
+                                         st[F_EXT_START], st[F_EXT_POS])
+    ik1, ik2, dir_off, out_n, poison = (st[F_IK1], st[F_IK2], st[F_DIR_OFF],
+                                        st[F_OUT_N], st[F_POISON])
+    tri_failed = st[F_TRI_FAILED] != 0
+    dir_set = st[F_DIR_SET] != 0
 
-    def lanes(a):
-        return torch.as_tensor(np.asarray(a, dtype=np.int64), device=dev)
+    in_init = (phase == PHASE_INIT) & (cursor < stops_t)
+    in_ext = phase == PHASE_EXT
+    in_dir = in_ext & (ik2 == 1) if prm.sa_mode != "none" else no
+    iv_ext = in_ext & ~in_dir
 
-    starts_t = lanes(starts)
-    stops_t = lanes(stops)
-    zero = torch.zeros(B, dtype=i64, device=dev)
-    no = torch.zeros(B, dtype=torch.bool, device=dev)
-    phase, cursor = zero.clone(), starts_t.clone()
-    ext_start, ext_pos, ik1, ik2, dir_off = zero, zero, zero, zero, zero
-    tri_failed, dir_set = no, no
-    out = torch.zeros((B, max_out, 3), dtype=i64, device=dev)   # meta,k0,fr
-    out_n = zero
-    poison = torch.full((B,), POISON_NONE, dtype=i64, device=dev)
-    j16 = torch.arange(16, device=dev)[None, :] * 16
-    n_iter = 0
-    while True:
-        in_init = (phase == PHASE_INIT) & (cursor < stops_t)
-        in_ext = phase == PHASE_EXT
-        if not bool((in_init | in_ext).any()):
-            break
-        n_iter += 1
-        in_dir = in_ext & (ik2 == 1)
-        iv_ext = in_ext & ~in_dir
+    # one metadata fetch: INIT lanes look at `cursor`, EXT at `ext_pos`;
+    # the direct comparator's query window is the same row
+    look = torch.where(in_ext, ext_pos, cursor).clamp(0, n_look - 1)
+    qrow = q_rows[look >> 8]                                     # [B, 64]
+    cls12, real3, b1ok, real8, amb_w = _meta16(qrow, look & 255)
+    cls_init = cls12 & ((1 << (2 * order)) - 1)
+    cls8 = cls12 & 0xFFFF
+    cls3 = cls12 & 63
+    cls1 = cls12 & 3
 
-        # one metadata fetch: INIT lanes look at `cursor`, EXT at `ext_pos`;
-        # the direct comparator's query window is the same row
-        look = torch.where(in_ext, ext_pos, cursor).clamp(0, n_look - 1)
-        qrow = q_rows[look >> 8]                                 # [B, 64]
-        cls12, real3, b1ok, real8, amb_w = _meta16(qrow, look & 255)
-        cls_init = cls12 & ((1 << (2 * order)) - 1)
-        cls8 = cls12 & 0xFFFF
-        cls3 = cls12 & 63
-        cls1 = cls12 & 3
+    # ---- INIT class choice: INIT-order jump, else 8, 3, 1 ----
+    init_amb = ~b1ok
+    if use_init:
+        init_can12 = b1ok & ((amb_w & init_mask) == 0) \
+            & (cursor + (order - 1) < stops_t)
+    else:
+        init_can12 = no
+    init_can8 = b1ok & real8 & (cursor + 7 < stops_t) & ~init_can12 \
+        if use8 else no
+    init_can3 = b1ok & real3 & (cursor + 2 < stops_t) \
+        & ~init_can8 & ~init_can12
 
-        # ---- INIT class choice: INIT-order jump, else 8, 3, 1 ----
-        init_amb = ~b1ok
-        if use_init:
-            init_can12 = b1ok & ((amb_w & init_mask) == 0) \
-                & (cursor + (order - 1) < stops_t)
+    # ---- EXT class choice: triple (3 bases) when possible, else 1 ----
+    can3 = iv_ext & (ext_pos + 2 < stops_t) & real3 & ~tri_failed
+    cls = torch.where(can3, cls3, cls1)
+
+    # one packed (lo | sz << 32) row per lane; the INIT-order rows carry
+    # starts[g+1], so their sz is starts[g+1] - starts[g] minus the
+    # short-suffix step keys in init_corr
+    i3_lo_idx = 65536 + cls3
+    i1_lo_idx = 65536 + 64 + (3 - cls1)
+    init_lo_idx = torch.where(
+        init_can12, rank_ops.INIT_OFF + cls_init,
+        torch.where(init_can8, cls8,
+                    torch.where(init_can3, i3_lo_idx, i1_lo_idx)))
+    ext_lo_idx = torch.where(can3, i3_lo_idx, i1_lo_idx)
+    v = dfm.comb_pairs[torch.where(in_init, init_lo_idx, ext_lo_idx)]
+    sel_a = v & M32
+    sel_b = v >> 32
+    corr_n = (cls_init[:, None] == dfm.init_corr[None, :]).sum(1)
+    init_sz = torch.where(init_can12, sel_b - sel_a - corr_n, sel_b)
+
+    # ---- INIT step ----
+    init_dead = in_init & (init_can12 | init_can8 | init_can3) \
+        & (init_sz == 0)
+    start_ext = in_init & b1ok & ~init_dead
+    init_jump = torch.where(
+        init_can12, order,
+        torch.where(init_can8, 8, torch.where(init_can3, 3, 1)))
+
+    # ---- interval EXT step ----
+    cnt = rank_ops.occ_t3(dfm, torch.cat([ik1, ik1 + ik2]),
+                          torch.cat([can3, can3]), torch.cat([cls, cls]))
+    tk, tl = cnt[:B], cnt[B:]
+    e_ik1 = sel_a + tk
+    e_ik2 = tl - tk
+    hit_boundary = ext_pos >= stops_t
+    dead_end = (e_ik2 == 0) & ~can3
+    fin_iv = iv_ext & (hit_boundary | ~b1ok | dead_end)
+    tri_miss = iv_ext & can3 & (e_ik2 == 0)
+    ext_ok = iv_ext & ~fin_iv & ~tri_miss
+
+    # ---- DIRECT step: unique-interval lanes compare text to query ----
+    if prm.sa_mode != "none":
+        need = in_dir & ~dir_set          # lanes resolving their SA now
+        if prm.sa_mode == "pallas":
+            # compacted reads: a lane past the K slots stalls this
+            # iteration (enter stays False, so none of its state moves)
+            enter = need & (slot >= 0)
+            rc_pos = res_k[slot.clamp(0, res_k.shape[0] - 1)].to(i64)
         else:
-            init_can12 = no
-        init_can8 = b1ok & real8 & (cursor + 7 < stops_t) & ~init_can12 \
-            if use8 else no
-        init_can3 = b1ok & real3 & (cursor + 2 < stops_t) \
-            & ~init_can8 & ~init_can12
-
-        # ---- EXT class choice: triple (3 bases) when possible, else 1 ----
-        can3 = iv_ext & (ext_pos + 2 < stops_t) & real3 & ~tri_failed
-        cls = torch.where(can3, cls3, cls1)
-
-        # one packed (lo | sz << 32) row per lane; the INIT-order rows carry
-        # starts[g+1], so their sz is starts[g+1] - starts[g] minus the
-        # short-suffix step keys in init_corr
-        i3_lo_idx = 65536 + cls3
-        i1_lo_idx = 65536 + 64 + (3 - cls1)
-        init_lo_idx = torch.where(
-            init_can12, rank_ops.INIT_OFF + cls_init,
-            torch.where(init_can8, cls8,
-                        torch.where(init_can3, i3_lo_idx, i1_lo_idx)))
-        ext_lo_idx = torch.where(can3, i3_lo_idx, i1_lo_idx)
-        v = dfm.comb_pairs[torch.where(in_init, init_lo_idx, ext_lo_idx)]
-        sel_a = v & M32
-        sel_b = v >> 32
-        corr_n = (cls_init[:, None] == dfm.init_corr[None, :]).sum(1)
-        init_sz = torch.where(init_can12, sel_b - sel_a - corr_n, sel_b)
-
-        # ---- INIT step ----
-        init_dead = in_init & (init_can12 | init_can8 | init_can3) \
-            & (init_sz == 0)
-        start_ext = in_init & b1ok & ~init_dead
-        init_jump = torch.where(
-            init_can12, order,
-            torch.where(init_can8, 8, torch.where(init_can3, 3, 1)))
-
-        # ---- interval EXT step ----
-        cnt = rank_ops.occ_t3(dfm, torch.cat([ik1, ik1 + ik2]),
-                              torch.cat([can3, can3]), torch.cat([cls, cls]))
-        tk, tl = cnt[:B], cnt[B:]
-        e_ik1 = sel_a + tk
-        e_ik2 = tl - tk
-        hit_boundary = ext_pos >= stops_t
-        dead_end = (e_ik2 == 0) & ~can3
-        fin_iv = iv_ext & (hit_boundary | ~b1ok | dead_end)
-        tri_miss = iv_ext & can3 & (e_ik2 == 0)
-        ext_ok = iv_ext & ~fin_iv & ~tri_miss
-
-        # ---- DIRECT step: unique-interval lanes compare text to query ----
-        enter = in_dir & ~dir_set              # lanes resolving their SA now
-        rc_pos = dfm.sa_rows[ik1.clamp(0, n_sa - 1)].to(i64)
+            enter = need
+            rc_pos = dfm.sa_rows[ik1.clamp(0, n_sa - 1)].to(i64)
+        in_dir_eff = in_dir & (dir_set | enter)
         dir_off = torch.where(enter, seq_len - rc_pos - ext_pos, dir_off)
-        p = dir_off + ext_pos                  # text pos of next compare
+        p = dir_off + ext_pos             # text pos of next compare
         p_safe = p.clamp(0, seq_len - 1)
         jrow = p_safe >> 8
         trow4 = dfm.text_rows[jrow >> 2]                         # [B, 128]
@@ -231,6 +302,7 @@ def _scan(dfm: DeviceFMIndex, q_rows: torch.Tensor, starts: np.ndarray,
         x = tw ^ qw
         mm = ((x | (x >> 1)) & 0x55555555) | aw                  # [B, 16]
         # first mismatch = min over words of 16j + clz/2; 256 if none
+        j16 = torch.arange(16, device=st.device)[None, :] * 16
         cand = torch.where(mm == 0, 4096, j16 + (_clz32(mm) >> 1))
         run = cand.min(1).values.clamp(max=256)
         lim_q = stops_t - ext_pos
@@ -244,63 +316,118 @@ def _scan(dfm: DeviceFMIndex, q_rows: torch.Tensor, starts: np.ndarray,
         bound_dir = reach & (lim_q <= lim_t.clamp(max=256))
         tdead_dir = reach & ~bound_dir & (lim_t <= 256)
         cont_dir = reach & ~bound_dir & ~tdead_dir
-        fin_dir = in_dir & (~reach | bound_dir | tdead_dir)
-        dir_adv = in_dir & cont_dir
+        fin_dir = in_dir_eff & (~reach | bound_dir | tdead_dir)
+        dir_adv = in_dir_eff & cont_dir
         dir_ext_pos = ext_pos + adv
+    else:
+        in_dir_eff = fin_dir = dir_adv = no
+        dir_ext_pos = ext_pos
 
-        # ---- finalize ----
-        finalize = fin_iv | fin_dir
-        length = torch.where(in_dir, dir_ext_pos, ext_pos) - ext_start
-        freq = ik2
-        is_hit = finalize & (length >= min_seed_length) & (freq > 0) \
-            & (freq <= max_seed_freq)
-        advance = torch.where(
-            is_hit, ext_start + (5 if sensitive else length + 1),
-            ext_start + 1)
-        # a full emit buffer poisons the lane: it retires here and a later
-        # round re-scans it from this start position
-        overflow = is_hit & (out_n >= max_out)
-        do_emit = is_hit & ~overflow
-        # direct hits already know their occurrence: k0 < 0 encodes the
-        # resolved text position -(r_start+1) instead of a rank
-        k0 = torch.where(in_dir, -(dir_off + ext_start) - 1, ik1)
-        rec = torch.stack([(ext_start - starts_t) | (length << 16), k0,
-                           freq.clamp(max=max_seed_freq + 1)], dim=1)
-        slot = out_n.clamp(max=max_out - 1)[:, None, None].expand(B, 1, 3)
-        out.scatter_(1, slot, torch.where(do_emit[:, None, None],
-                                          rec[:, None, :],
-                                          out.gather(1, slot)))
-        out_n = out_n + do_emit.to(i64)
+    # ---- finalize ----
+    finalize = fin_iv | fin_dir
+    length = torch.where(in_dir, dir_ext_pos, ext_pos) - ext_start
+    freq = ik2
+    is_hit = finalize & (length >= prm.min_seed_length) & (freq > 0) \
+        & (freq <= prm.max_seed_freq)
+    advance = torch.where(
+        is_hit, ext_start + (5 if prm.sensitive else length + 1),
+        ext_start + 1)
+    # a full emit buffer poisons the lane: it retires here and a later
+    # round re-scans it from this start position
+    overflow = is_hit & (out_n >= max_out)
+    do_emit = is_hit & ~overflow
+    # direct hits already know their occurrence: k0 < 0 encodes the
+    # resolved text position -(r_start+1) instead of a rank
+    k0 = torch.where(in_dir, -(dir_off + ext_start) - 1, ik1)
+    rec = torch.stack([(ext_start - starts_t) | (length << 16), k0,
+                       freq.clamp(max=prm.max_seed_freq + 1)], dim=1)
+    out = lanes.out
+    slot_o = out_n.clamp(max=max_out - 1)[:, None, None].expand(B, 1, 3)
+    out.scatter_(1, slot_o, torch.where(do_emit[:, None, None],
+                                        rec[:, None, :],
+                                        out.gather(1, slot_o)))
 
-        # ---- state updates ----
-        new_cursor = torch.where(
-            overflow, stops_t,
-            torch.where((in_init & init_amb) | init_dead, cursor + 1,
-                        torch.where(finalize, advance, cursor)))
-        poison = torch.where(overflow & (poison == POISON_NONE), ext_start,
+    # ---- state updates ----
+    new_cursor = torch.where(
+        overflow, stops_t,
+        torch.where((in_init & init_amb) | init_dead, cursor + 1,
+                    torch.where(finalize, advance, cursor)))
+    new_poison = torch.where(overflow & (poison == POISON_NONE), ext_start,
                              poison)
-        new_ext_pos = torch.where(
-            start_ext, cursor + init_jump,
-            torch.where(ext_ok, ext_pos + torch.where(can3, 3, 1),
-                        torch.where(dir_adv, dir_ext_pos, ext_pos)))
-        ext_start = torch.where(start_ext, cursor, ext_start)
-        cursor = new_cursor
-        ext_pos = new_ext_pos
-        ik1 = torch.where(start_ext, sel_a, torch.where(ext_ok, e_ik1, ik1))
-        ik2 = torch.where(start_ext, init_sz,
-                          torch.where(ext_ok, e_ik2, ik2))
-        reset = start_ext | finalize
-        tri_failed = ~reset & (tri_miss | (~ext_ok & tri_failed))
-        dir_set = ~reset & (in_dir | dir_set)
-        phase = torch.where(start_ext, PHASE_EXT,
+    new_ext_pos = torch.where(
+        start_ext, cursor + init_jump,
+        torch.where(ext_ok, ext_pos + torch.where(can3, 3, 1),
+                    torch.where(dir_adv, dir_ext_pos, ext_pos)))
+    reset = start_ext | finalize
+    new_phase = torch.where(start_ext, PHASE_EXT,
                             torch.where(finalize, PHASE_INIT, phase))
+    st.copy_(torch.stack([
+        new_phase, new_cursor,
+        torch.where(start_ext, cursor, ext_start),
+        new_ext_pos,
+        torch.where(start_ext, sel_a, torch.where(ext_ok, e_ik1, ik1)),
+        torch.where(start_ext, init_sz, torch.where(ext_ok, e_ik2, ik2)),
+        (~reset & (tri_miss | (~ext_ok & tri_failed))).to(i64),
+        (~reset & (in_dir_eff | dir_set)).to(i64),
+        dir_off, out_n + do_emit.to(i64), new_poison]))
+    live = ((new_phase == PHASE_INIT) & (new_cursor < stops_t)) \
+        | (new_phase == PHASE_EXT)
+    return live.sum()
 
-    keep = torch.arange(max_out, device=dev)[None, :] < out_n[:, None]
-    recs = out[keep].cpu().numpy()                  # lane-major order
-    n = out_n.cpu().numpy()
-    lane = np.repeat(np.arange(B, dtype=np.int64), n)
+
+def _sa_slots(dfm: DeviceFMIndex, lanes: ScanLanes, K: int, gather):
+    """pallas mode: compact the lanes that enter direct mode this
+    iteration, in lane order, into K slots and read their SA words with one
+    masked gather (JAX seeding.py:366-386). Returns (slot int64 [B], -1
+    past the K slots; res_k int32 [K])."""
+    st = lanes.st
+    need = (st[F_PHASE] == PHASE_EXT) & (st[F_IK2] == 1) \
+        & (st[F_DIR_SET] == 0)
+    pos = torch.cumsum(need, 0) - 1
+    slot = torch.where(need & (pos < K), pos, -1)
+    idx = torch.full((K + 1,), -1, dtype=torch.int32, device=st.device)
+    # slots past min(n_need, K) keep -1; every other lane writes slot K,
+    # which is dropped
+    idx.scatter_(0, torch.where(slot >= 0, slot, K),
+                 st[F_IK1].clamp(0, dfm.seq_len).to(torch.int32))
+    return slot, gather(dfm.sa_rows, idx[:K])
+
+
+def _scan(dfm: DeviceFMIndex, q_rows: torch.Tensor, starts: np.ndarray,
+          stops: np.ndarray, prm: ScanParams, plain: bool):
+    """Run every lane [starts[i], stops[i]) to completion. Returns host
+    arrays (qs_rel, ls, k0, fr, lane, exits, poison, n_iter): the hits in
+    lane-major order with their lane index, and per lane the final cursor
+    and poison position. plain runs the plain torch step and gather on
+    any device; otherwise a CUDA device runs the kernels."""
+    if prm.min_seed_length <= 3:
+        raise ValueError("the triple-step shortcuts need min_seed_length > 3")
+    from gsalign_tpu_torch.ops import gather as gather_ops
+    from gsalign_tpu_torch.ops import seed_cuda
+    step = seed_step_plain if plain else seed_cuda.seed_step
+    gather = gather_ops.masked_gather_plain if plain \
+        else gather_ops.masked_gather
+    B = len(starts)
+    K = min(_SA_GATHER_K, B)
+    lanes = ScanLanes.start(starts, stops, prm.max_out, q_rows.device)
+    n_iter = 0
+    if bool((np.asarray(starts) < np.asarray(stops)).any()):
+        while True:
+            slot = res_k = None
+            if prm.sa_mode == "pallas":
+                slot, res_k = _sa_slots(dfm, lanes, K, gather)
+            live = step(dfm, q_rows, lanes, prm, n_iter, slot, res_k)
+            n_iter += 1
+            if int(live) == 0:            # the one host sync per iteration
+                break
+
+    st = lanes.st.cpu().numpy()
+    keep = torch.arange(prm.max_out, device=q_rows.device)[None, :] \
+        < lanes.st[F_OUT_N][:, None]
+    recs = lanes.out[keep].cpu().numpy()            # lane-major order
+    lane = np.repeat(np.arange(B, dtype=np.int64), st[F_OUT_N])
     return (recs[:, 0] & 0xFFFF, recs[:, 0] >> 16, recs[:, 1], recs[:, 2],
-            lane, cursor.cpu().numpy(), poison.cpu().numpy(), n_iter)
+            lane, st[F_CURSOR], st[F_POISON], n_iter)
 
 
 def find_seeds_all(dfm: DeviceFMIndex,
@@ -310,7 +437,8 @@ def find_seeds_all(dfm: DeviceFMIndex,
                    sensitive: bool = False,
                    chunk: int = 10000,
                    max_out_cap: Optional[int] = None,
-                   stats: Optional[dict] = None):
+                   stats: Optional[dict] = None,
+                   plain: bool = False):
     """Seed ALL query chromosomes, exactly reproducing the reference's
     per-chunk sequential scan: one lane per chunk of every chromosome, all
     in one device loop.
@@ -318,9 +446,13 @@ def find_seeds_all(dfm: DeviceFMIndex,
     Returns [(q_pos, r_pos, length), ...] per chromosome, each sorted by
     (PosDiff, qPos), identical to the reference scan. With `stats`, records
     the loop's iteration count per round ("scan_iterations") and the lane
-    count ("scan_lanes")."""
+    count ("scan_lanes"). GSALIGN_SA_MODE picks the SA mode (see
+    pick_sa_mode). plain runs the plain torch versions of the three seed-stage kernels
+    (seed_step, masked_gather, resolve_sa) on any device: the comparison
+    with the kernels on a card uses it."""
     if chunk > 0xFFFF:
         raise ValueError("seed chunk too large for the packed emit record")
+    sa_mode = pick_sa_mode(dfm)
     offs = []
     chunk_bounds = []            # (concat_start, concat_stop) per chunk
     off = 0
@@ -341,6 +473,9 @@ def find_seeds_all(dfm: DeviceFMIndex,
     if max_out_cap is None:
         max_out_cap = 512 if sensitive else 96
     max_out = min(hard_max, max(2, max_out_cap))
+    prm = ScanParams(min_seed_length=min_seed_length,
+                     max_seed_freq=max_seed_freq, sensitive=sensitive,
+                     max_out=max_out, sa_mode=sa_mode)
 
     starts = np.asarray([s for s, _ in chunk_bounds], dtype=np.int64)
     stops = np.asarray([e for _, e in chunk_bounds], dtype=np.int64)
@@ -349,8 +484,7 @@ def find_seeds_all(dfm: DeviceFMIndex,
     # each round advances an overflowing lane by >= max_out hits
     for _round in range(2 + -(-chunk // max(1, max_out))):
         qs_rel, ls, k0, fr, lane, _, poison, n_iter = _scan(
-            dfm, q_rows, starts, stops, min_seed_length, max_seed_freq,
-            sensitive, max_out)
+            dfm, q_rows, starts, stops, prm, plain)
         iters.append(n_iter)
         qs = qs_rel + starts[lane]
         keep = qs < poison[lane]
@@ -370,7 +504,7 @@ def find_seeds_all(dfm: DeviceFMIndex,
         stats["scan_lanes"] = len(chunk_bounds)
     q_pos, r_pos, length = _expand_hits(
         dfm, np.concatenate(hits_q), np.concatenate(hits_l),
-        np.concatenate(hits_k0), np.concatenate(hits_fr))
+        np.concatenate(hits_k0), np.concatenate(hits_fr), plain)
     return _split_per_chromosome(q_pos, r_pos, length, codes_list, offs)
 
 
@@ -389,25 +523,38 @@ def _split_per_chromosome(q_pos, r_pos, length, codes_list, offs):
     return results
 
 
-def _expand_hits(dfm: DeviceFMIndex, qs, ls, k0, fr):
-    """Resolve occurrence positions for flat hit arrays (host SA gather)."""
+def hit_ranks(k0: np.ndarray, fr: np.ndarray):
+    """One entry per occurrence of flat hits: (rep, ranks, k0r) — the hit
+    of each occurrence, the SA rank it resolves (0 where the hit carries a
+    pre-resolved position, k0 < 0), and the hit's k0."""
+    fr = fr.astype(np.int64)
+    total = int(fr.sum())
+    rep = np.repeat(np.arange(fr.shape[0]), fr)
+    offset = np.arange(total) - np.repeat(np.cumsum(fr) - fr, fr)
+    k0r = k0[rep].astype(np.int64)
+    return rep, np.where(k0r < 0, 0, k0r + offset), k0r
+
+
+def _expand_hits(dfm: DeviceFMIndex, qs, ls, k0, fr, plain: bool = False):
+    """Resolve occurrence positions for flat hit arrays: a host gather on
+    a full-SA index, resolve_sa on the device on a sampled one."""
     if qs.size == 0:
         z = np.zeros(0, dtype=np.int64)
         return z, z, z
-    fr = fr.astype(np.int64)
-    total = int(fr.sum())
-    rep = np.repeat(np.arange(qs.shape[0]), fr)
-    offset = np.arange(total) - np.repeat(np.cumsum(fr) - fr, fr)
-    k0r = k0[rep].astype(np.int64)
-    # direct-extension hits carry a pre-resolved occurrence position
-    # encoded as k0 = -(r_start+1) (always freq 1); everything else is a
-    # rank to resolve through the SA
-    pre = k0r < 0
-    rc_pos = dfm.host_sa[np.where(pre, 0, k0r + offset)].astype(np.int64)
+    rep, ranks, k0r = hit_ranks(k0, fr)
+    if dfm.host_sa is not None:
+        rc_pos = dfm.host_sa[ranks].astype(np.int64)
+    else:
+        from gsalign_tpu_torch.ops import seed_cuda
+        resolve = rank_ops.resolve_sa if plain else seed_cuda.resolve_sa
+        rc_pos = resolve(dfm, torch.from_numpy(ranks).to(dfm.device)
+                         ).cpu().numpy()
     lens = ls[rep].astype(np.int64)
-    # ranks index RC(P) occurrences; the fwd+RC text is its own reverse
-    # complement, so P occurs at the mirrored positions.
-    r_pos = np.where(pre, -k0r - 1, dfm.seq_len - rc_pos - lens)
+    # direct-extension hits carry a pre-resolved occurrence position
+    # encoded as k0 = -(r_start+1) (always freq 1); the other ranks index
+    # RC(P) occurrences, and the fwd+RC text is its own reverse complement,
+    # so P occurs at the mirrored positions.
+    r_pos = np.where(k0r < 0, -k0r - 1, dfm.seq_len - rc_pos - lens)
     return qs[rep].astype(np.int64), r_pos, lens
 
 

@@ -1,6 +1,7 @@
-"""The hand-written DP kernels against their plain torch version on a CUDA
-card. Every test skips without a card. This file imports no JAX, so it
-runs on a machine without it:
+"""The hand-written kernels (DP, masked_gather, seed_step, resolve_sa)
+against their plain torch versions on a CUDA card. Every test skips
+without a card. This file imports no JAX, so it runs on a machine without
+it:
 
     python -m pytest -p no:cacheprovider --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -9,8 +10,10 @@ import numpy as np
 import pytest
 import torch
 
+from gsalign_tpu_torch.genome.packing import Genome
+from gsalign_tpu_torch.index.fmindex import build_fmindex
 from gsalign_tpu_torch.ops import dp as tdp
-from gsalign_tpu_torch.ops import dp_cuda
+from gsalign_tpu_torch.ops import dp_cuda, gather, rank, seed_cuda, seeding
 # by module name: pytest puts tests/ on sys.path, and `tests.` would find
 # an installed package of that name first where one exists
 from dp_cases import (load_oracle, make_batch, max_abs_err, oracle_batch,
@@ -67,3 +70,99 @@ def test_wrappers_raise_for_other_devices(card):
     ln = torch.ones(1, dtype=torch.int32)
     with pytest.raises(ValueError, match="one device"):
         dp_cuda.dp_small(q, q, ln, ln, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,K", [(4096, 512), (3000, 64), (5, 3)])
+def test_masked_gather_matches_plain_on_card(card, n, K):
+    rng = np.random.default_rng(n)
+    table = torch.from_numpy(rng.integers(0, 2 ** 31 - 1, n,
+                                          dtype=np.int32)).to(card)
+    idx = rng.integers(0, n, K).astype(np.int32)
+    idx[rng.random(K) < 1 / 3] = -1
+    idx = torch.from_numpy(idx).to(card)
+    n0 = gather.masked_gather.launches
+    got = gather.masked_gather(table, idx)
+    torch.cuda.synchronize()
+    assert gather.masked_gather.launches == n0 + 1
+    assert torch.equal(got, gather.masked_gather_plain(table, idx))
+
+
+def genome_and_queries(seed, lens=(3000, 1200)):
+    rng = np.random.default_rng(seed)
+    refs = [rng.integers(0, 4, n).astype(np.uint8) for n in lens]
+    g = Genome(names=[f"c{i}" for i in range(len(refs))],
+               lengths=np.asarray(lens),
+               offsets=np.concatenate([[0], np.cumsum(lens)[:-1]]),
+               holes=[], codes_fwd=np.concatenate(refs))
+    queries = []
+    for r in refs[::-1]:
+        q = r.copy()
+        subs = rng.random(len(q)) < 0.02
+        q[subs] = (q[subs] + rng.integers(1, 4, subs.sum())) % 4
+        queries.append(q)
+    queries[0][40:60] = 4
+    queries.append((3 - refs[0][200:900][::-1]).astype(np.uint8))
+    return g, queries
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sa_intv,sa_mode,K", [
+    (1, "xla", 512), (1, "pallas", 512), (1, "pallas", 2), (8, "xla", 512)])
+@pytest.mark.parametrize("sensitive", [False, True])
+def test_seed_scan_kernels_match_plain_on_card(card, monkeypatch, sa_intv,
+                                               sa_mode, K, sensitive):
+    """The whole scan through seed_step (and masked_gather, resolve_sa)
+    against the plain step on the same card: the same seeds, and the same
+    iteration count in every round."""
+    monkeypatch.setattr(seeding, "_SA_GATHER_K", K)
+    monkeypatch.setenv("GSALIGN_SA_MODE", sa_mode)
+    g, queries = genome_and_queries(sa_intv + K)
+    dfm = rank.DeviceFMIndex.from_host(build_fmindex(g, sa_intv=sa_intv),
+                                       card)
+    kw = dict(min_seed_length=12, sensitive=sensitive, chunk=300,
+              max_out_cap=4)
+    plain_stats, stats = {}, {}
+    want = seeding.find_seeds_all(dfm, queries, plain=True,
+                                  stats=plain_stats, **kw)
+    n0 = (seed_cuda.seed_step.launches, gather.masked_gather.launches,
+          seed_cuda.resolve_sa.launches)
+    got = seeding.find_seeds_all(dfm, queries, stats=stats, **kw)
+    assert stats == plain_stats
+    for a, b in zip(got, want):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    assert seed_cuda.seed_step.launches - n0[0] == sum(stats[
+        "scan_iterations"])
+    assert (gather.masked_gather.launches > n0[1]) == (sa_mode == "pallas"
+                                                       and sa_intv == 1)
+    assert (seed_cuda.resolve_sa.launches > n0[2]) == (sa_intv > 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sa_intv", [1, 8, 32])
+def test_resolve_sa_matches_plain_on_card(card, sa_intv):
+    g, _ = genome_and_queries(sa_intv)
+    full = build_fmindex(g, sa_intv=1).sa_samples
+    dfm = rank.DeviceFMIndex.from_host(build_fmindex(g, sa_intv=sa_intv),
+                                       card)
+    k = torch.arange(dfm.seq_len + 1, dtype=torch.int64, device=card)
+    got = seed_cuda.resolve_sa(dfm, k)
+    assert torch.equal(got, rank.resolve_sa(dfm, k))
+    np.testing.assert_array_equal(got.cpu().numpy(), full)
+
+
+@pytest.mark.cuda
+def test_seed_wrappers_raise_for_other_devices(card):
+    """Tables on the CPU with ranks on the card: the kernel is not
+    launched on them."""
+    g, _ = genome_and_queries(3)
+    cpu_tables = rank.DeviceFMIndex.from_host(build_fmindex(g, sa_intv=8))
+    k = torch.zeros(3, dtype=torch.int64, device=card)
+    n0 = seed_cuda.resolve_sa.launches
+    with pytest.raises(ValueError, match="not cuda"):
+        seed_cuda.resolve_sa(cpu_tables, k)
+    assert seed_cuda.resolve_sa.launches == n0
+    with pytest.raises(ValueError, match="one device"):
+        gather.masked_gather(torch.zeros(4, dtype=torch.int32, device=card),
+                             torch.zeros(2, dtype=torch.int32))

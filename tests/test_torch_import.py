@@ -19,7 +19,8 @@ def port_modules():
 
 def test_importing_every_port_module_leaves_jax_out():
     mods = port_modules()
-    assert "gsalign_tpu_torch.ops.dp_cuda" in mods
+    for kernels in ("dp_cuda", "gather", "seed_cuda", "cuda_build"):
+        assert f"gsalign_tpu_torch.ops.{kernels}" in mods
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in mods)
             + "bad = sorted(m for m in sys.modules if m == 'jax' or "

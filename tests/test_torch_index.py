@@ -160,11 +160,39 @@ def test_rank_queries_match_jax(fms):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
+@pytest.mark.parametrize("sa_intv", [8, 32])
+def test_sampled_device_tables_match_jax(genomes, sa_intv):
+    """A sampled-SA index lays out the JAX package's non-direct tables:
+    the SA samples on the device, dummy text windows and sa_rows."""
+    jg, tg = genomes
+    jd = jrank.DeviceFMIndex.from_host(
+        jfmindex.build_fmindex(jg, sa_intv=sa_intv, prefer_device=False))
+    tfm = tfmindex.build_fmindex(tg, sa_intv=sa_intv)
+    want = trank.tables_from_jax(jd)
+    got = trank.DeviceFMIndex.host_tables(tfm)
+    assert set(got) == set(want)
+    for name, a in want.items():
+        b = got[name]
+        if isinstance(a, np.ndarray):
+            assert a.shape == b.shape, name
+            np.testing.assert_array_equal(b.astype(np.int64),
+                                          a.astype(np.int64), err_msg=name)
+        else:
+            assert a == b, name
+    dfm = trank.DeviceFMIndex.from_host(tfm)
+    assert not dfm.direct_ok and dfm.host_sa is None
+    assert dfm.sa_intv == sa_intv and dfm.sa_samples.dtype == torch.int32
+    np.testing.assert_array_equal(dfm.sa_samples.numpy(), tfm.sa_samples)
+    assert tuple(dfm.text_rows.shape) == (1, 1)
+
+
 def test_unported_index_kinds_raise(genomes):
     _, tg = genomes
-    sampled = tfmindex.build_fmindex(tg, sa_intv=8)
-    with pytest.raises(NotImplementedError, match="queue 2 item 5"):
-        trank.DeviceFMIndex.from_host(sampled)
     wide = tfmindex.build_fmindex(tg, force_wide=True)
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         trank.DeviceFMIndex.from_host(wide)
+    jg, _ = genomes
+    jwide = jrank.DeviceFMIndex.from_host(
+        jfmindex.build_fmindex(jg, force_wide=True, prefer_device=False))
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        trank.tables_from_jax(jwide)

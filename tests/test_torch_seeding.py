@@ -3,6 +3,7 @@ against the naive reference scan (tests/helpers.naive_lmem_seeds) and the
 JAX package's find_seeds_all, mirroring tests/test_seeding.py. Seed sets
 are integer triples: every comparison is exact."""
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -12,6 +13,7 @@ from gsalign_tpu.ops import rank as jrank
 from gsalign_tpu.ops import seeding as jseeding
 from gsalign_tpu_torch.genome.packing import Genome
 from gsalign_tpu_torch.index.fmindex import build_fmindex
+from gsalign_tpu_torch.ops import seeding as tseeding
 from gsalign_tpu_torch.ops.rank import DeviceFMIndex
 from gsalign_tpu_torch.ops.seeding import find_seeds, find_seeds_all
 from tests.helpers import naive_lmem_seeds, random_genome
@@ -146,3 +148,104 @@ def test_seeding_rejects_oversized_chunk():
     with pytest.raises(ValueError):
         find_seeds(dfm, random_genome(rng, 100), chunk=70000)
     assert dfm.device == torch.device("cpu")
+
+
+_JAX_PALLAS = {}     # K -> JAX seeds under pallas_interp (computed once)
+
+
+def jax_pallas_seeds(monkeypatch, jdfm, qry, K, **kw):
+    """The JAX package's find_seeds_all with its Pallas masked gather in
+    interpret mode and K compaction slots (as tests/test_seeding.py)."""
+    if K not in _JAX_PALLAS:
+        monkeypatch.setenv("GSALIGN_SA_MODE", "pallas_interp")
+        monkeypatch.setattr(jseeding, "_SA_GATHER_K", K)
+        # _SA_GATHER_K is read at trace time inside the jitted scan
+        jax.clear_caches()
+        _JAX_PALLAS[K] = jseeding.find_seeds_all(jdfm, [qry], **kw)[0]
+        monkeypatch.delenv("GSALIGN_SA_MODE")
+        jax.clear_caches()
+    return _JAX_PALLAS[K]
+
+
+@pytest.mark.parametrize("gather_k", [8, 64])
+@pytest.mark.parametrize("sa_mode", ["xla", "pallas"])
+def test_seeding_sa_modes_match_naive_and_jax_pallas(monkeypatch, sa_mode,
+                                                     gather_k):
+    """Both direct-mode SA reads give the naive scan's seeds and the JAX
+    package's under its Pallas gather with the same K; a K far below the
+    lane count makes lanes stall and retry in pallas mode, which costs
+    iterations and changes no seed."""
+    rng = np.random.default_rng(77)
+    ref = random_genome(rng, 2500)
+    fm, dfm, jdfm = index_pair([ref])
+    assert dfm.direct_ok
+    qry = mutate(ref, rng, sub_rate=0.02)
+    kw = dict(min_seed_length=12, max_seed_freq=100, chunk=100)
+    want = jax_pallas_seeds(monkeypatch, jdfm, qry, gather_k, **kw)
+    monkeypatch.setattr(tseeding, "_SA_GATHER_K", gather_k)
+    monkeypatch.setenv("GSALIGN_SA_MODE", sa_mode)
+    stats, xla_stats = {}, {}
+    got = find_seeds_all(dfm, [qry], stats=stats, **kw)[0]
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    naive = naive_lmem_seeds(fm.genome.codes_fwd_rc(), qry, **kw)
+    assert as_set(got) == sorted(naive)
+    monkeypatch.setenv("GSALIGN_SA_MODE", "xla")
+    find_seeds_all(dfm, [qry], stats=xla_stats, **kw)
+    monkeypatch.setenv("GSALIGN_SA_MODE", sa_mode)
+    assert stats["scan_lanes"] == 25
+    if sa_mode == "xla":
+        assert stats == xla_stats
+    else:
+        # one slot: every iteration with two entering lanes stalls one
+        monkeypatch.setattr(tseeding, "_SA_GATHER_K", 1)
+        one = {}
+        got1 = find_seeds_all(dfm, [qry], stats=one, **kw)
+        for a, b in zip(got1[0], want):
+            np.testing.assert_array_equal(a, b)
+        assert one["scan_iterations"][0] > xla_stats["scan_iterations"][0]
+        assert stats["scan_iterations"][0] >= \
+            xla_stats["scan_iterations"][0]
+
+
+def test_sa_mode_comes_from_the_environment(monkeypatch):
+    rng = np.random.default_rng(3)
+    _, dfm, _ = index_pair([random_genome(rng, 400)])
+    monkeypatch.delenv("GSALIGN_SA_MODE", raising=False)
+    assert tseeding.pick_sa_mode(dfm) == "xla"
+    for mode in ("xla", "pallas"):
+        monkeypatch.setenv("GSALIGN_SA_MODE", mode)
+        assert tseeding.pick_sa_mode(dfm) == mode
+    for mode in ("xlak", "pallas_interp", "none", "bogus"):
+        monkeypatch.setenv("GSALIGN_SA_MODE", mode)
+        with pytest.raises(ValueError, match="not carried"):
+            tseeding.pick_sa_mode(dfm)
+        with pytest.raises(ValueError):
+            find_seeds(dfm, random_genome(rng, 100), chunk=50)
+
+
+def test_sa_slots_compact_in_lane_order():
+    """pallas mode's compaction: needy lanes take slots 0, 1, ... in lane
+    order, lanes past K get -1, and unused slots read index -1."""
+    rng = np.random.default_rng(4)
+    _, dfm, _ = index_pair([random_genome(rng, 400)])
+    B, K = 7, 3
+    lanes = tseeding.ScanLanes.start(np.zeros(B), np.full(B, 10), 4, "cpu")
+    need = np.array([0, 1, 1, 0, 1, 1, 0], bool)
+    lanes.st[tseeding.F_PHASE] = torch.from_numpy(need.astype(np.int64))
+    lanes.st[tseeding.F_IK2] = 1
+    lanes.st[tseeding.F_DIR_SET, 2] = 1          # lane 2 already resolved
+    lanes.st[tseeding.F_IK1] = torch.arange(B) * 10
+    seen = []
+
+    def fake_gather(table, idx):
+        seen.append(idx.tolist())
+        return idx
+    slot, res = tseeding._sa_slots(dfm, lanes, K, fake_gather)
+    assert slot.tolist() == [-1, 0, -1, -1, 1, 2, -1]
+    assert seen == [[10, 40, 50]]
+    lanes.st[tseeding.F_PHASE] = 0
+    lanes.st[tseeding.F_PHASE, 5] = 1
+    slot, _ = tseeding._sa_slots(dfm, lanes, K, fake_gather)
+    assert slot.tolist() == [-1, -1, -1, -1, -1, 0, -1]
+    assert seen[-1] == [50, -1, -1]
