@@ -16,21 +16,28 @@ Phases (each raises on failure; nothing is caught):
      outputs in tests/golden (default, -sen, -fmt 2);
   4. 4.6 Mb (E. coli scale, make_pair(4_600_000)): index build and align
      through the CLI on the card (the main path), with the JAX package's
-     output counts and sha256 values, and the DP kernels and seed_step
-     launched; then the same align with GSALIGN_SA_MODE=pallas, which
-     also launches masked_gather;
+     output counts and sha256 values, and the DP kernels and seed_scan
+     launched (and no seed_step); then the same align with
+     GSALIGN_SA_MODE=pallas, which launches the lock-step seed_step and
+     masked_gather (and no seed_scan);
   5. 12 Mb (yeast scale, make_pair(12_000_000)): align through the CLI in
      the xla and pallas SA modes and on an sa_intv=8 index built through
-     the API (resolve_sa launched), each with the JAX package's counts and
-     sha256 values;
+     the API (seed_scan and resolve_sa launched), each with the JAX
+     package's counts and sha256 values;
   6. the seed-stage kernels against their plain torch versions on the
-     card: masked_gather on the 12 Mb sa_rows at K = 512; seed_step as the
-     whole scan at 4.6 and 12 Mb in both SA modes (equal seeds and equal
-     iteration counts per round); resolve_sa on every rank the 12 Mb
-     sampled run resolves, against the full suffix array too;
-  7. the seed scan's device operations per iteration, under torch.profiler.
+     card: masked_gather on the 12 Mb sa_rows at K = 512; seed_scan at
+     4.6 Mb and 12 Mb (xla) and on the sa_intv=8 index (equal records,
+     lane state and iteration counts); the lock-step seed_step scan at
+     4.6 Mb against the same plain scan (xla), and as the pallas-mode
+     scan at 4.6 Mb and 12 Mb; resolve_sa on every rank the 12 Mb sampled run resolves,
+     against the full suffix array too;
+  7. the seed scan's device operations per scan (per iteration in pallas
+     mode), under torch.profiler.
 Every align run sets the kernels' launch counts to 0 just before it and
-reads them just after. The last two lines are the kernels JSON and
+reads them just after. Each kernel's bound is the larger of its bytes over
+the card's memory rate and its operations over the card's integer rate,
+counted from this run's data: of a table only the distinct rows that the
+run reads, each once (scan_work). The last two lines are the kernels JSON and
 {"ok": true, "device": ...}. Without a CUDA device, or without the
 repository around it, it exits non-zero and prints no result.
 """
@@ -58,6 +65,35 @@ GOLDEN = os.path.join(REPO, "tests", "golden")
 SMALL_LS = (64, 128, 256)                    # dp_small's buckets
 ANY_LS = (512, 1024, 2048, 3072, 5120)       # dp_any: 3072 = ceil(m/1024)*1024
 BATCH_CELLS = 1 << 26                        # AlignConfig.dp_batch_cells
+
+# Published peaks of one H100 SXM at its full 700 W: 3.35 TB/s of device
+# memory; 67 TFLOP/s of float32 outside the tensor cores is 33.5 T lane
+# instructions a second (a fused multiply-add counts two), and an SM has
+# half as many int32 lanes as float32 lanes: 16.75 T int32 operations/s.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_INT_OPS_PER_S = 16.75e12
+# integer operations of one DP cell (csrc/dp.cu's inner loop: 6 for the
+# score, 10 for z and its direction, 7 for u, v, x, y, 7 for the
+# continuation bits and the nibble store)
+DP_OPS_PER_CELL = 30
+# integer operations of one single-class rank over a 32-word symbol row
+# (8 a word: xor, byte compare, mask, popcount, add) with up to 16
+# checkpoint adds for each half of the packed minors. A scan step in
+# interval extension does two ranks; every step does about 100 more for
+# the lane's state machine (a direct-compare step spends them on its 16
+# words). An LF-walk step is one rank.
+RANK_OPS = 32 * 8 + 2 * 16
+STEP_OPS = 100
+ROW_BYTES = 256          # a t3 row, and a row of its major checkpoints
+TEXT_SEG_BYTES = 64      # 256 bases of packed text
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """{bound_ms, bound_by} of work that must move n_bytes and do n_ops
+    integer operations."""
+    by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = n_ops / PEAK_INT_OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 # The JAX package's CPU runs of `gsalign_tpu.cli -r ref.fa -q qry.fa -o out
 # -t 1` on make_pair(4_600_000) and make_pair(12_000_000).
@@ -166,7 +202,8 @@ def phase_card() -> str:
 
 def phase_kernels(seed: int = 0, lengths=None) -> dict:
     """Each kernel against its plain version at full aligner batches.
-    Returns per-kernel totals {name: {ms, plain_ms, max_abs_err}}."""
+    Returns per-kernel totals {name: {ms, plain_ms, max_abs_err, bound_ms,
+    bound_by}}, summed over the widths."""
     import torch
     from gsalign_tpu_torch.ops import dp as dp_ops
     from gsalign_tpu_torch.ops import dp_cuda
@@ -183,8 +220,12 @@ def phase_kernels(seed: int = 0, lengths=None) -> dict:
         if lengths is not None and L not in lengths:
             continue
         B = min(1024, max(1, BATCH_CELLS // (L * L)))
-        args = [torch.from_numpy(a).cuda()
-                for a in make_batch(rng, L, B)]
+        host = make_batch(rng, L, B)
+        args = [torch.from_numpy(a).cuda() for a in host]
+        # codes and lengths in, 2L ops a problem out; the cells of this
+        # batch's problems
+        cells = int((host[2].astype(np.int64) * host[3]).sum())
+        bnd = bound(2 * B * L + 8 * B + 2 * B * L, cells * DP_OPS_PER_CELL)
         t0 = time.time()
         plain = dp_ops.dp_align_batch(*args, L)
         torch.cuda.synchronize()
@@ -197,11 +238,15 @@ def phase_kernels(seed: int = 0, lengths=None) -> dict:
                                  f"the plain version (max |diff| {err})")
         ms = cuda_ms(lambda: fn(*args, L), reps=5)
         say(f"[kernel] {fn.__name__:8s} L={L:5d} B={B:5d}  kernel "
-            f"{ms:10.3f} ms  plain {plain_ms:10.1f} ms  ops equal")
-        tot = totals.setdefault(fn.__name__, {"ms": 0.0, "plain_ms": 0.0,
-                                              "max_abs_err": 0})
+            f"{ms:10.3f} ms  plain {plain_ms:10.1f} ms  bound "
+            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, {cells} cells)  "
+            f"ops equal")
+        tot = totals.setdefault(fn.__name__, {
+            "ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0, "bound_ms": 0.0,
+            "bound_by": bnd["bound_by"]})
         tot["ms"] += ms
         tot["plain_ms"] += plain_ms
+        tot["bound_ms"] += bnd["bound_ms"]
         tot["max_abs_err"] = max(tot["max_abs_err"], err)
     return totals
 
@@ -267,6 +312,7 @@ def counters():
     from gsalign_tpu_torch.ops import dp_cuda, gather, seed_cuda
     return {"dp_small": dp_cuda.dp_small, "dp_any": dp_cuda.dp_any,
             "masked_gather": gather.masked_gather,
+            "seed_scan": seed_cuda.seed_scan,
             "seed_step": seed_cuda.seed_step,
             "resolve_sa": seed_cuda.resolve_sa}
 
@@ -343,12 +389,12 @@ def phase_46mb() -> dict:
     # the main path: counts start at 0 just before it runs
     runs = {"4.6mb": align_run(
         "4.6mb", d, f"{d}/idx", EXPECT_46,
-        must_launch=("dp_small", "dp_any", "seed_step"),
-        must_not_launch=("masked_gather", "resolve_sa"))}
+        must_launch=("dp_small", "dp_any", "seed_scan"),
+        must_not_launch=("seed_step", "masked_gather", "resolve_sa"))}
     runs["4.6mb-pallas"] = align_run(
         "4.6mb-pallas", d, f"{d}/idx", EXPECT_46, sa_mode="pallas",
         must_launch=("dp_small", "dp_any", "seed_step", "masked_gather"),
-        must_not_launch=("resolve_sa",))
+        must_not_launch=("seed_scan", "resolve_sa"))
     return runs
 
 
@@ -369,19 +415,19 @@ def phase_12mb() -> dict:
     fm8 = build_fmindex(pack_genome(read_fasta(f"{d}/ref.fa")), sa_intv=8)
     save_index(fm8, f"{d}/idx8")
     say(f"[12mb] sa_intv=8 index build {time.time() - t0:.2f} s")
-    seedy = ("dp_small", "seed_step")
     return {
-        "12mb": align_run("12mb", d, f"{d}/idx", EXPECT_12,
-                          must_launch=seedy,
-                          must_not_launch=("masked_gather", "resolve_sa")),
+        "12mb": align_run(
+            "12mb", d, f"{d}/idx", EXPECT_12,
+            must_launch=("dp_small", "seed_scan"),
+            must_not_launch=("seed_step", "masked_gather", "resolve_sa")),
         "12mb-pallas": align_run(
             "12mb-pallas", d, f"{d}/idx", EXPECT_12, sa_mode="pallas",
-            must_launch=seedy + ("masked_gather",),
-            must_not_launch=("resolve_sa",)),
+            must_launch=("dp_small", "seed_step", "masked_gather"),
+            must_not_launch=("seed_scan", "resolve_sa")),
         "12mb-sa8": align_run(
             "12mb-sa8", d, f"{d}/idx8", EXPECT_12,
-            must_launch=seedy + ("resolve_sa",),
-            must_not_launch=("masked_gather",)),
+            must_launch=("dp_small", "seed_scan", "resolve_sa"),
+            must_not_launch=("seed_step", "masked_gather")),
     }
 
 
@@ -395,11 +441,22 @@ def load_case(tag: str, idx: str):
     t0 = time.time()
     fm = load_index(os.path.join(WORK, tag, idx))
     t1 = time.time()
-    dfm = DeviceFMIndex.from_host(fm, torch.device("cuda"))
+    # DeviceFMIndex.from_host, in its two halves
+    tabs = DeviceFMIndex.host_tables(fm)
+    t2 = time.time()
+    dfm = DeviceFMIndex.from_tables(
+        tabs, host_sa=np.asarray(fm.sa_samples) if tabs["direct_ok"]
+        else None, seq_len=fm.seq_len, primary=fm.primary,
+        device=torch.device("cuda"))
     torch.cuda.synchronize()
+    t3 = time.time()
+    n_bytes = sum(v.numel() * v.element_size() for v in vars(dfm).values()
+                  if isinstance(v, torch.Tensor))
     say(f"[tables] {tag} {idx}: load_index {t1 - t0:.2f} s, "
-        f"DeviceFMIndex.from_host (build and upload) {time.time() - t1:.2f} "
-        f"s, {torch.cuda.memory_allocated() / 2 ** 20:.0f} MiB on the card")
+        f"DeviceFMIndex.from_host {t3 - t1:.2f} s = host layout "
+        f"(host_tables) {t2 - t1:.2f} s + upload (from_tables) "
+        f"{t3 - t2:.2f} s; device tables {n_bytes} bytes "
+        f"({n_bytes / 2 ** 20:.1f} MiB)")
     queries = [chars_to_codes(q) for _, q in
                read_fasta(os.path.join(WORK, tag, "qry.fa"))]
     return dfm, queries
@@ -418,9 +475,170 @@ def timed(fn):
     return res, start.elapsed_time(end)
 
 
+class Touched:
+    """Marks which rows of a table have been read; no host sync."""
+
+    def __init__(self, n_rows: int, row_bytes: int, device):
+        import torch
+        # the last slot takes the lanes that read nothing
+        self.seen = torch.zeros(n_rows + 1, dtype=torch.bool, device=device)
+        self.row_bytes = row_bytes
+
+    def mark(self, rows, where=None):
+        import torch
+        spare = self.seen.shape[0] - 1
+        rows = rows.clamp(0, spare - 1)
+        self.seen[rows if where is None
+                  else torch.where(where, rows, spare)] = True
+
+    def bytes(self) -> int:
+        return int(self.seen[:-1].sum()) * self.row_bytes
+
+
+def scan_work(dfm, q_rows, starts, stops, prm) -> dict:
+    """The bytes and integer operations that the scan of these lanes (xla
+    or none mode) needs, each input read once and each output written
+    once. The plain scan runs once more, and before each step the table
+    rows its live lanes are about to read are marked: an interval-extension
+    step reads the t3 rows (and the major-checkpoint rows) of its two
+    ranks, one row where both fall in one; a direct-compare step reads two
+    256-base segments of the text, and on entering one SA word; an INIT
+    step reads one comb_pairs word (8 bytes a step, at most the table) and
+    no rank row. Per lane besides: its query window (code and ambiguity
+    words), starts and stops in, the lane state out, its records out.
+    Returns {n_bytes, n_ops, steps, rank_steps, direct_steps, init_steps,
+    table_bytes}."""
+    import torch
+    from gsalign_tpu_torch.ops import seeding as sd
+    dev = q_rows.device
+    lanes = sd.ScanLanes.start(starts, stops, prm.max_out, dev)
+    t3 = Touched(dfm.t3.shape[0], ROW_BYTES, dev)
+    major = Touched(dfm.t3_major.shape[0], ROW_BYTES, dev)
+    text = Touched(-(-dfm.seq_len // 256) + 1, TEXT_SEG_BYTES, dev)
+    n = torch.zeros(4, dtype=torch.int64, device=dev)  # rank, dir, init, sa
+    direct = prm.sa_mode != "none"
+    while lanes.max_len > 0:
+        st = lanes.st
+        ext = st[sd.F_PHASE] == sd.PHASE_EXT
+        init = ~ext & (st[sd.F_CURSOR] < lanes.stops)
+        in_dir = ext & (st[sd.F_IK2] == 1) if direct \
+            else torch.zeros_like(ext)
+        iv = ext & ~in_dir
+        for k in (st[sd.F_IK1], st[sd.F_IK1] + st[sd.F_IK2]):
+            t3.mark(k >> 7, iv)
+            major.mark(k >> 15, iv)
+        enter = in_dir & (st[sd.F_DIR_SET] == 0)
+        if direct:
+            rc = dfm.sa_rows[st[sd.F_IK1].clamp(0, dfm.seq_len)].long()
+            off = torch.where(enter, dfm.seq_len - rc - st[sd.F_EXT_POS],
+                              st[sd.F_DIR_OFF])
+            seg = (off + st[sd.F_EXT_POS]).clamp(0, dfm.seq_len - 1) >> 8
+            text.mark(seg, in_dir)
+            text.mark(seg + 1, in_dir)
+        n += torch.stack([iv.sum(), in_dir.sum(), init.sum(), enter.sum()])
+        if int(sd.seed_step_plain(dfm, q_rows, lanes, prm)) == 0:
+            break
+    rank_steps, direct_steps, init_steps, sa_words = n.tolist()
+    steps = rank_steps + direct_steps + init_steps
+    st = lanes.st.cpu().numpy()
+    if steps != int(st[sd.F_STEPS].sum()):
+        raise AssertionError("scan_work: the steps counted by kind are not "
+                             "the steps the lanes took")
+    B = len(starts)
+    comb = min(8 * init_steps,
+               dfm.comb_pairs.numel() * dfm.comb_pairs.element_size())
+    table_bytes = t3.bytes() + major.bytes() + text.bytes() \
+        + 4 * sa_words + comb
+    window = 2 * 4 * ((lanes.max_len >> 4) + 20)
+    n_bytes = table_bytes + B * (window + 2 * 8 + 8 * sd.N_FIELDS) \
+        + 24 * int(st[sd.F_OUT_N].sum())
+    return {"n_bytes": n_bytes, "table_bytes": table_bytes,
+            "n_ops": 2 * RANK_OPS * rank_steps + STEP_OPS * steps,
+            "steps": steps, "rank_steps": rank_steps,
+            "direct_steps": direct_steps, "init_steps": init_steps}
+
+
+def scan_check(tag: str, dfm, queries, lockstep: bool) -> dict:
+    """seed_scan (and with lockstep the lock-step seed_step scan) against
+    the plain scan on the first round's lanes of `queries`: records and
+    lane state must be equal. Returns {kernel: {ms, plain_ms, max_abs_err,
+    bound_ms, bound_by}}."""
+    import torch
+    from gsalign_tpu_torch.ops import seed_cuda, seeding
+    rounds = []
+    with sa_mode_env(None):
+        seeding.find_seeds_all(dfm, queries, rounds=rounds)
+    q_rows, starts, stops, prm = rounds[0][:4]
+
+    def fresh():
+        return seeding.ScanLanes.start(starts, stops, prm.max_out,
+                                       q_rows.device)
+
+    def err_of(lanes, st, plain_lanes, plain_st):
+        return max(int(np.abs(st - plain_st).max()),
+                   int((lanes.out - plain_lanes.out).abs().max()))
+    p_lanes = fresh()
+    p_st, plain_ms = timed(lambda: seeding.seed_scan_plain(dfm, q_rows,
+                                                           p_lanes, prm))
+    lanes = fresh()
+    st = seed_cuda.seed_scan(dfm, q_rows, lanes, prm)    # also the warm-up
+    err = err_of(lanes, st, p_lanes, p_st)
+    if err:
+        bad = np.argwhere(st != p_st)[:5].tolist()
+        raise AssertionError(f"seed_scan {tag}: records or lane state "
+                             f"differ from the plain scan (max |diff| "
+                             f"{err}; state rows, lanes {bad})")
+    reps = []
+    for _ in range(5):                # the launch and the state read-back
+        again = fresh()
+        reps.append(timed(lambda: seed_cuda.seed_scan(dfm, q_rows, again,
+                                                      prm))[1])
+    ms = sum(reps) / len(reps)
+    steps = st[seeding.F_STEPS]
+    n_rec = int(st[seeding.F_OUT_N].sum())
+    work = scan_work(dfm, q_rows, starts, stops, prm)
+    if work["steps"] != int(steps.sum()):
+        raise AssertionError(f"seed_scan {tag}: the work count's scan took "
+                             f"other steps than the kernel's")
+    bnd = bound(work["n_bytes"], work["n_ops"])
+    say(f"[kernel] seed_scan {tag} {prm.sa_mode}: {len(starts)} lanes, "
+        f"{work['steps']} steps in all ({work['init_steps']} INIT, "
+        f"{work['rank_steps']} interval, {work['direct_steps']} direct), "
+        f"longest lane {int(steps.max())} (plain loop: "
+        f"{int(p_st[seeding.F_STEPS].max())} iterations), {n_rec} records; "
+        f"kernel {ms:.3f} ms (5 launches: "
+        f"{', '.join(f'{r:.3f}' for r in reps)})  plain {plain_ms:.1f} ms  "
+        f"bound {bnd['bound_ms']:.5f} ms ({bnd['bound_by']}: "
+        f"{work['n_bytes']} bytes, {work['table_bytes']} of them distinct "
+        f"table rows; {work['n_ops']} operations)  equal")
+    out = {"seed_scan": {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+                         **bnd}}
+    if lockstep:
+        l_lanes = fresh()
+        n_iter, l_ms = timed(lambda: seeding.scan_lockstep(
+            dfm, q_rows, l_lanes, prm, plain=False))
+        l_st = l_lanes.st.cpu().numpy()
+        l_err = err_of(l_lanes, l_st, p_lanes, p_st)
+        if l_err or n_iter != int(steps.max()):
+            raise AssertionError(f"seed_step {tag}: the lock-step scan "
+                                 f"differs from the plain scan (max |diff| "
+                                 f"{l_err}, {n_iter} iterations)")
+        # the same function on the same lanes, so the same bound: the
+        # state that each launch reads and writes back is the lock step's
+        # own traffic, not work the scan needs
+        say(f"[kernel] seed_step lock-step scan {tag} {prm.sa_mode}: "
+            f"{n_iter} iterations (launches); kernel scan {l_ms:.1f} ms  "
+            f"plain {plain_ms:.1f} ms  bound {bnd['bound_ms']:.5f} ms "
+            f"({bnd['bound_by']}, the scan's)  equal")
+        out["seed_step"] = {"ms": l_ms, "plain_ms": plain_ms,
+                            "max_abs_err": l_err, **bnd}
+    return out
+
+
 def phase_seed_kernels() -> dict:
-    """masked_gather, seed_step and resolve_sa against their plain torch
-    versions on the card. Returns per-kernel {ms, plain_ms, max_abs_err}."""
+    """masked_gather, seed_scan, seed_step and resolve_sa against their
+    plain torch versions on the card. Returns per-kernel {ms, plain_ms,
+    max_abs_err, bound_ms, bound_by}."""
     import torch
     from gsalign_tpu_torch.ops import gather, rank, seed_cuda, seeding
     totals = {}
@@ -443,38 +661,45 @@ def phase_seed_kernels() -> dict:
     say(f"[kernel] masked_gather K={K} on sa_rows "
         f"[{dfm12.sa_rows.shape[0]}]  kernel {ms:.4f} ms  plain "
         f"{plain_ms:.4f} ms  equal")
+    # K indices in, K words out, and the words that the valid indices name
+    bnd = bound(4 * K + 4 * K + 4 * int((idx >= 0).sum()), K)
     totals["masked_gather"] = {"ms": ms, "plain_ms": plain_ms,
-                               "max_abs_err": err}
+                               "max_abs_err": err, **bnd}
 
-    # seed_step: the whole scan, kernel against plain, both SA modes
-    cases = [("4.6mb",) + load_case("4.6mb", "idx"), ("12mb", dfm12, q12)]
-    for tag, dfm, queries in cases:
-        for mode in ("xla", "pallas"):
-            runs = {}
-            for plain in (True, False):
-                stats = {}
-                with sa_mode_env(mode):
-                    seeds, ms = timed(lambda: seeding.find_seeds_all(
-                        dfm, queries, plain=plain, stats=stats))
-                runs[plain] = (seeds, stats, ms)
-            (ps, pst, pms), (ks, kst, kms) = runs[True], runs[False]
-            same = all(np.array_equal(x, y) for a, b in zip(ks, ps)
-                       for x, y in zip(a, b))
-            if not same or kst != pst:
-                raise AssertionError(
-                    f"seed_step {tag} {mode}: the kernel scan differs from "
-                    f"the plain one ({kst} against {pst})")
-            n_seeds = sum(len(c[0]) for c in ks)
-            say(f"[kernel] seed_step scan {tag} {mode}: {n_seeds} seeds, "
-                f"iterations {kst['scan_iterations']} (plain "
-                f"{pst['scan_iterations']}), kernel {kms:.1f} ms  plain "
-                f"{pms:.1f} ms  equal")
-            if tag == "12mb" and mode == "xla":
-                totals["seed_step"] = {"ms": kms, "plain_ms": pms,
-                                       "max_abs_err": 0}
+    # seed_scan against its plain version (the lock-step plain scan) at
+    # 4.6 Mb and 12 Mb (xla) and on the sampled index (none); at 4.6 Mb
+    # also the lock-step seed_step scan against the same plain scan
+    dfm46, q46 = load_case("4.6mb", "idx")
+    dfm8, q8 = load_case("12mb", "idx8")
+    for tag, dfm, queries in (("4.6mb", dfm46, q46), ("12mb", dfm12, q12),
+                              ("12mb-sa8", dfm8, q8)):
+        res = scan_check(tag, dfm, queries, lockstep=tag == "4.6mb")
+        if tag == "4.6mb":            # the main path's shapes
+            totals.update(res)
+
+    # pallas mode: the lock-step kernels against the plain scan, as whole
+    # scans; at 12 Mb 1,200 lanes contend for the K slots (stall and retry)
+    for tag, dfm, queries in (("4.6mb", dfm46, q46), ("12mb", dfm12, q12)):
+        runs = {}
+        for plain in (True, False):
+            stats = {}
+            with sa_mode_env("pallas"):
+                seeds, ms = timed(lambda: seeding.find_seeds_all(
+                    dfm, queries, plain=plain, stats=stats))
+            runs[plain] = (seeds, stats, ms)
+        (ps, pst, pms), (ks, kst, kms) = runs[True], runs[False]
+        same = all(np.array_equal(x, y) for a, b in zip(ks, ps)
+                   for x, y in zip(a, b))
+        if not same or kst != pst:
+            raise AssertionError(f"seed_step {tag} pallas: the kernel scan "
+                                 f"differs from the plain one ({kst} "
+                                 f"against {pst})")
+        say(f"[kernel] seed_step scan {tag} pallas: "
+            f"{sum(len(c[0]) for c in ks)} seeds, iterations "
+            f"{kst['scan_iterations']} (plain {pst['scan_iterations']}), "
+            f"kernel {kms:.1f} ms  plain {pms:.1f} ms  equal")
 
     # resolve_sa: every rank the 12 Mb sampled run resolves
-    dfm8, q8 = load_case("12mb", "idx8")
     captured = []
     expand = seeding._expand_hits
 
@@ -494,17 +719,36 @@ def phase_seed_kernels() -> dict:
     if err or not np.array_equal(got.cpu().numpy(), full):
         raise AssertionError("resolve_sa differs from the plain version or "
                              "from the full suffix array")
+    # the LF steps these ranks need, and the distinct t3 and major rows
+    # they read; the rank in, its sample in and the SA value out
+    t3 = Touched(dfm8.t3.shape[0], ROW_BYTES, k.device)
+    major = Touched(dfm8.t3_major.shape[0], ROW_BYTES, k.device)
+    walk, steps = k.clone(), 0
+    while True:
+        active = (walk & (dfm8.sa_intv - 1)) != 0
+        n_active = int(active.sum())
+        if n_active == 0:
+            break
+        steps += n_active
+        t3.mark(walk >> 7, active)
+        major.mark(walk >> 15, active)
+        walk = torch.where(active, rank.lf_t3(dfm8, walk), walk)
+    n_bytes = t3.bytes() + major.bytes() + k.numel() * (8 + 4 + 8)
+    bnd = bound(n_bytes, steps * RANK_OPS)
     say(f"[kernel] resolve_sa on {k.numel()} ranks of the 12 Mb hits "
-        f"(sa_intv 8)  kernel {ms:.3f} ms  plain {plain_ms:.1f} ms  equal "
-        f"to the plain version and to the full SA")
+        f"(sa_intv 8, {steps} LF steps)  kernel {ms:.3f} ms  plain "
+        f"{plain_ms:.1f} ms  bound {bnd['bound_ms']:.5f} ms "
+        f"({bnd['bound_by']}: {n_bytes} bytes, {steps * RANK_OPS} "
+        f"operations)  equal to the plain version and to the full SA")
     totals["resolve_sa"] = {"ms": ms, "plain_ms": plain_ms,
-                            "max_abs_err": err}
+                            "max_abs_err": err, **bnd}
     return totals
 
 
 def phase_profile():
-    """Device operations per scan iteration (kernels, copies and sets),
-    under torch.profiler, at 4.6 Mb in both SA modes."""
+    """Device operations (kernels, copies and sets) of the seed stage under
+    torch.profiler at 4.6 Mb: per scan in xla mode, per iteration of the
+    lock-step loop in pallas mode."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -522,16 +766,20 @@ def phase_profile():
                 wall = time.time() - t0
         dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         n_iter = sum(stats["scan_iterations"])
+        n_scan = len(stats["scan_iterations"])
         busy = sum(e.time_range.elapsed_us() for e in dev) / 1e6
         names = {}
         for e in dev:
             n, us = names.get(e.name, (0, 0.0))
             names[e.name] = (n + 1, us + e.time_range.elapsed_us())
-        say(f"[profile] seed scan 4.6mb {mode}: {len(dev)} device "
-            f"operations over {n_iter} iterations "
-            f"({len(dev) / max(1, n_iter):.2f} per iteration); device busy "
-            f"{busy:.4f} s of {wall:.3f} s traced wall")
-        for name, (n, us) in sorted(names.items(), key=lambda kv: -kv[1][0]
+        per = (f"{len(dev) / max(1, n_iter):.2f} per iteration"
+               if mode == "pallas" else
+               f"{len(dev) / max(1, n_scan):.1f} per scan, query rows and "
+               f"hit expansion included")
+        say(f"[profile] seed stage 4.6mb {mode}: {len(dev)} device "
+            f"operations over {n_scan} scan(s) of {n_iter} iterations "
+            f"({per}); device busy {busy:.4f} s of {wall:.3f} s traced wall")
+        for name, (n, us) in sorted(names.items(), key=lambda kv: -kv[1][1]
                                     )[:8]:
             say(f"[profile]   {n:6d} x {us / n:8.2f} us  {name[:90]}")
 
@@ -567,9 +815,11 @@ def main() -> int:
         f"iterations {r['iterations']}" for tag, r in runs.items()))
 
     def entry(name, source, replaces, launches):
+        # no single PyTorch call computes any of these functions
         return {"name": name, "route": "cuda",
                 "source": f"gsalign_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": launches, **totals[name]}
+                "replaces": replaces, "launches": launches, **totals[name],
+                "library_ms": None}
     kernels = [
         entry("dp_small", "dp.cu", "gsalign_tpu/ops/dp_pallas.py:80",
               main_path["dp_small"]),
@@ -578,8 +828,10 @@ def main() -> int:
         entry("masked_gather", "gather.cu",
               "gsalign_tpu/ops/gather_pallas.py:34",
               runs["4.6mb-pallas"]["launches"]["masked_gather"]),
+        entry("seed_scan", "seed.cu", "gsalign_tpu/ops/seeding.py:150",
+              main_path["seed_scan"]),
         entry("seed_step", "seed.cu", "gsalign_tpu/ops/seeding.py:221",
-              main_path["seed_step"]),
+              runs["4.6mb-pallas"]["launches"]["seed_step"]),
         entry("resolve_sa", "seed.cu", "gsalign_tpu/ops/rank.py:625",
               runs["12mb-sa8"]["launches"]["resolve_sa"]),
     ]

@@ -21,18 +21,13 @@ from gsalign_tpu_torch.config import AlignConfig
 
 
 def select_device():
-    """The torch device named by GSALIGN_PLATFORM (cpu | cuda)."""
-    import torch
+    """The torch device named by GSALIGN_PLATFORM (cpu | cuda); unset means
+    cuda, which raises without a card (utils/device.resolve_device)."""
+    from gsalign_tpu_torch.utils.device import resolve_device
     plat = os.environ.get("GSALIGN_PLATFORM", "cuda")
-    if plat == "cpu":
-        return torch.device("cpu")
-    if plat != "cuda":
+    if plat not in ("cpu", "cuda"):
         raise ValueError(f"GSALIGN_PLATFORM must be cpu or cuda, got {plat!r}")
-    if not torch.cuda.is_available():
-        raise RuntimeError("GSALIGN_PLATFORM=cuda but no CUDA device is "
-                           "available (set GSALIGN_PLATFORM=cpu to run on "
-                           "the CPU)")
-    return torch.device("cuda")
+    return resolve_device("cpu" if plat == "cpu" else None)
 
 
 def show_usage(prog: str, cfg: AlignConfig):

@@ -27,6 +27,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from gsalign_tpu_torch.utils.device import resolve_device
+
 MATCH = 1
 MISMATCH = -1
 GAP_OPEN = 2      # q
@@ -172,15 +174,20 @@ class FragmentAligner:
     are identical for any submit() split.
 
     dp_fn(q, t, ql, tl, L) takes uint8 [B, L] codes and int32 [B] lengths on
-    `device` and returns reverse-order uint8 ops [B, W] with OP_PAD holes.
+    `device` and returns reverse-order uint8 ops [B, W] with OP_PAD holes;
+    by default the hand-written kernels (ops/dp_cuda.dp_align, which runs
+    the plain version on CPU tensors). device=None is the CUDA card and
+    raises without one; "cpu" asks for the CPU.
     """
 
     def __init__(self, bucket_sizes=(64, 128, 256, 512, 1024, 2048, 5120),
-                 batch_cells: int = 1 << 26, dp_fn=None, device="cpu"):
+                 batch_cells: int = 1 << 26, dp_fn=None, device=None):
+        if dp_fn is None:
+            from gsalign_tpu_torch.ops.dp_cuda import dp_align as dp_fn
         self.bucket_sizes = bucket_sizes
         self.batch_cells = batch_cells
-        self.dp_fn = dp_align_batch if dp_fn is None else dp_fn
-        self.device = torch.device(device)
+        self.dp_fn = dp_fn
+        self.device = resolve_device(device)
         self.frags: list = []          # (rf, qf) by global index
         self.queue: dict = {}          # Lb -> [global index]
         self.pending: list = []        # (part_idxs, device_ops)
@@ -259,9 +266,10 @@ class FragmentAligner:
 def align_fragments(ref_frags, qry_frags, bucket_sizes=(64, 128, 256, 512,
                                                         1024, 2048, 5120),
                     batch_cells: int = 1 << 26, dp_fn=None,
-                    device="cpu") -> list:
+                    device=None) -> list:
     """Align a list of (ref_codes, qry_codes) numpy fragment pairs; returns
-    per-pair op arrays in FORWARD order (one-shot FragmentAligner)."""
+    per-pair op arrays in FORWARD order (one-shot FragmentAligner, whose
+    device rule applies: None is the card, "cpu" the CPU)."""
     fa = FragmentAligner(bucket_sizes=bucket_sizes, batch_cells=batch_cells,
                          dp_fn=dp_fn, device=device)
     fa.submit(ref_frags, qry_frags)

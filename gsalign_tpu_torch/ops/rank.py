@@ -7,9 +7,12 @@ checkpoints, the packed (lo | sz << 32) class-pair table with the INIT
 jump rows and the INIT short-suffix corrections; then either (full suffix
 array, "direct") the overlapping text windows and the 1024-padded suffix
 array, or (sampled suffix array) the SA samples, which resolve_sa reaches
-by LF walks. 32-bit packed words are held in int64 tensors (torch has no
-usable uint32 arithmetic); values the JAX package keeps in int64 stay
-int64.
+by LF walks. The tables of 32-bit words (union, t3, t3_major, text_rows)
+are torch.int32 tensors that hold the words' bit patterns: torch has no
+usable uint32 arithmetic, so the plain rank queries widen what they have
+gathered to int64 (`& M32`) before any bit arithmetic, and the kernels
+(csrc/seed.cu) read the words as they are. Values the JAX package keeps in
+int64 stay int64.
 
 Wide (seq_len >= 2^31) indexes are not ported yet (ROADMAP queue 1 item 7).
 lf_t3 and resolve_sa here are the plain torch versions of the resolve_sa
@@ -26,6 +29,7 @@ import torch
 
 from gsalign_tpu_torch.index.fmindex import (FMIndex, INIT12_MIN_SEQLEN,
                                              WORDS_PER_BLOCK)
+from gsalign_tpu_torch.utils.device import resolve_device
 
 UNION_ROW = 16   # uint32 words per row of the single-char rank table
 # comb_pairs layout: rows [0, 65536) INIT-8, then 136 class rows (triple
@@ -33,6 +37,13 @@ UNION_ROW = 16   # uint32 words per row of the single-char rank table
 INIT_OFF = 65536 + 136
 SA_ROW_BLOCK = 1024   # sa_rows is padded to a multiple of this many entries
 M32 = 0xFFFFFFFF
+# the tables of 32-bit words, torch.int32 on the device
+WORD_TABLES = ("union", "t3", "t3_major", "text_rows")
+
+
+def widen(words: torch.Tensor) -> torch.Tensor:
+    """uint32 words held as int32 bit patterns -> their values in int64."""
+    return words.to(torch.int64) & M32
 
 
 def comb_rows(order: int) -> int:
@@ -44,9 +55,9 @@ def comb_rows(order: int) -> int:
 class DeviceFMIndex:
     """Device rank tables (see the JAX package's DeviceFMIndex for the
     layout of each). Every tensor lives on `device`."""
-    union: torch.Tensor       # int64 [n_rows, 16] (uint32 words)
-    t3: torch.Tensor          # int64 [n3_rows, 64] (uint32 words)
-    t3_major: torch.Tensor    # int64 [ceil(n3/256), 64]
+    union: torch.Tensor       # int32 [n_rows, 16] (uint32 words)
+    t3: torch.Tensor          # int32 [n3_rows, 64] (uint32 words)
+    t3_major: torch.Tensor    # int32 [ceil(n3/256), 64]
     l2: torch.Tensor          # int64 [5]
     c64: torch.Tensor         # int64 [65]
     t3_exc_pos: torch.Tensor  # int64 [3]
@@ -55,7 +66,7 @@ class DeviceFMIndex:
     init_corr: torch.Tensor   # int64 [12], padded with -1
     # direct (full SA) indexes: the text windows and the suffix array;
     # [1, 1] and [1] dummies for sampled ones
-    text_rows: torch.Tensor   # int64 [ceil(2N/1024), 128] (uint32 words)
+    text_rows: torch.Tensor   # int32 [ceil(2N/1024), 128] (uint32 words)
     sa_rows: torch.Tensor     # int32 [pad1024(seq_len+1)]
     # sampled indexes: SA_full[k] for k % sa_intv == 0; [1] dummy if direct
     sa_samples: torch.Tensor  # int32 [ceil((seq_len+1)/sa_intv)]
@@ -167,8 +178,9 @@ class DeviceFMIndex:
                     direct_ok=direct_ok)
 
     @staticmethod
-    def from_host(fm: FMIndex, device="cpu") -> "DeviceFMIndex":
-        """Build the tables on the host and put them on `device`."""
+    def from_host(fm: FMIndex, device=None) -> "DeviceFMIndex":
+        """Build the tables on the host and put them on `device` (None:
+        the CUDA card, an error without one; "cpu": the CPU)."""
         tabs = DeviceFMIndex.host_tables(fm)
         return DeviceFMIndex.from_tables(
             tabs, host_sa=np.asarray(fm.sa_samples) if tabs["direct_ok"]
@@ -176,15 +188,20 @@ class DeviceFMIndex:
 
     @staticmethod
     def from_tables(tabs: dict, host_sa: Optional[np.ndarray], seq_len: int,
-                    primary: int, device="cpu") -> "DeviceFMIndex":
-        """Upload numpy tables (uint32 words widen to int64). host_sa is
-        the full suffix array of a direct index, None for a sampled one."""
-        dev = torch.device(device)
+                    primary: int, device=None) -> "DeviceFMIndex":
+        """Upload numpy tables: WORD_TABLES (uint32 or int32) as int32 bit
+        patterns, the SA planes as int32, the rest as int64. host_sa is
+        the full suffix array of a direct index, None for a sampled one.
+        device as in from_host."""
+        dev = resolve_device(device)
 
         def up(name, dtype=torch.int64):
-            a = np.asarray(tabs[name])
-            if a.dtype == np.uint32:
-                a = a.astype(np.int64)
+            a = np.ascontiguousarray(tabs[name])
+            if name in WORD_TABLES:
+                if a.dtype not in (np.uint32, np.int32):
+                    raise TypeError(f"{name} must hold 32-bit words, got "
+                                    f"{a.dtype}")
+                a, dtype = a.view(np.int32), torch.int32
             return torch.tensor(a, dtype=dtype, device=dev)
 
         return DeviceFMIndex(
@@ -296,7 +313,7 @@ def occ4(dfm: DeviceFMIndex, k: torch.Tensor) -> torch.Tensor:
     valid = k >= 0
     ka = k - (k >= dfm.primary).to(k.dtype)
     ka_safe = ka.clamp(min=0)
-    row = dfm.union[ka_safe >> 7]                            # [B, 16]
+    row = widen(dfm.union[ka_safe >> 7])                     # [B, 16]
     cp = row[:, :4]
     words = row[:, 4:12]
     base_mask = torch.from_numpy(_MASK_TABLE).to(k.device)[ka_safe & 127]
@@ -320,8 +337,8 @@ def occ_t3(dfm: DeviceFMIndex, k: torch.Tensor, is_triple: torch.Tensor,
     single mode: # of rows in [0, k) whose true preceding char is cls
       (cls in [0, 4)) — sym & 3 plus exception corrections."""
     dev = k.device
-    row = dfm.t3[k >> 7]                                     # [B, 64]
-    mrow = dfm.t3_major[k >> 15]                             # [B, 64]
+    row = widen(dfm.t3[k >> 7])                              # [B, 64]
+    mrow = dfm.t3_major[k >> 15].to(torch.int64)             # [B, 64]
     iota = torch.arange(64, device=dev)[None, :]
     want = torch.where(is_triple[:, None], iota == cls[:, None],
                        (iota & 3) == cls[:, None])
@@ -380,7 +397,7 @@ def lf_t3(dfm: DeviceFMIndex, k: torch.Tensor) -> torch.Tensor:
     strict_rank1(c, k) for c the char preceding row k's suffix; the SA == 0
     row maps to the sentinel row 0. k int64 [B]."""
     inb = k & 127
-    w = dfm.t3[k >> 7, 32 + (inb >> 2)]
+    w = widen(dfm.t3[k >> 7, 32 + (inb >> 2)])
     c = (w >> ((3 - (inb & 3)) * 8)) & 3
     # rows with SA < 3 store sym 0: fix the char. The SA == 0 row (the
     # primary) has none (its t3_exc_chr is -1, stored as 255 by the index

@@ -4,8 +4,8 @@ The reference walks each 10 kb query chunk sequentially, extending an exact
 match through the FM-index one base at a time and restarting after each
 emitted seed (src/GSAlign.cpp:51-107, src/bwt_search.cpp:141-185). Chunks are
 independent (extension is clipped at the chunk end), so each chunk is a
-lane here, and every lane runs the same state machine in lock step: one
-iteration of the loop in _scan is one seed_step over all lanes.
+lane here, and every lane runs the same state machine (one step of it is
+seed_step_plain below).
 
 Lane state machine (exact emulation of IdentifyLocalMEM + BWT_Search):
   INIT: read code[cursor]; ambiguous -> cursor+1; else start extension.
@@ -36,12 +36,24 @@ order, into _SA_GATHER_K slots and reads them with one masked_gather
 (the port of gather_pallas), and a lane beyond the slots stalls for one
 iteration. Stalls change the iteration count, never the seeds.
 
-One step is seed_step (ops/seed_cuda.py): the hand-written kernel on a
-CUDA device, seed_step_plain (here) on the CPU. The JAX package's
-speculative segments, halving-width lane cascade, power-of-two lane
-padding and its "xlak" and "pallas_interp" SA modes are not carried: one
-lane per chunk, one loop. A full emit buffer poisons its lane, which is
-re-scanned from the poison position in a further round.
+Two ways to run the lanes to their ends (scan_lanes):
+  seed_scan  one kernel launch in which every lane runs to completion on
+           its own (ops/seed_cuda.seed_scan). In the "xla" and "none" modes
+           a lane's trajectory depends on nothing but its own state and
+           the read-only tables, so lanes need no lock step. Its plain
+           version is the lock-step loop of seed_step_plain
+           (seed_scan_plain): on the CPU, and beside the kernel on a card.
+  lock step  one seed_step over all lanes per iteration of a host loop,
+           with one 4-byte read-back each (ops/seed_cuda.seed_step; on the
+           CPU seed_step_plain). "pallas" mode needs it, because its K
+           slots couple the lanes; in the other modes it remains as the
+           lane-by-lane diffing tool (scan_lockstep).
+Both give every lane the same steps, so the same records, final state and
+per-lane step counts (F_STEPS), whose maximum is the lock-step loop's
+iteration count. The JAX package's speculative segments, halving-width
+lane cascade, power-of-two lane padding and its "xlak" and "pallas_interp"
+SA modes are not carried: one lane per chunk. A full emit buffer poisons
+its lane, which is re-scanned from the poison position in a further round.
 """
 
 from __future__ import annotations
@@ -64,9 +76,10 @@ POISON_NONE = 0x7FFFFFFF
 def build_qrows(qcodes: torch.Tensor) -> torch.Tensor:
     """Overlapping 512-base query windows at stride 256: row r = [32 packed
     2-bit code words | 32 words of the ambiguity plane] covering bases
-    [256r, 256r+512), int64 [R, 64] holding uint32 words. The ambiguity
-    plane stores (code >= 4) in each 2-bit field's LOW bit. qcodes: uint8
-    [n] on the target device."""
+    [256r, 256r+512), int32 [R, 64] holding the uint32 words' bit patterns
+    (as the index's word tables, see ops/rank.py). The ambiguity plane
+    stores (code >= 4) in each 2-bit field's LOW bit. qcodes: uint8 [n] on
+    the target device."""
     n = qcodes.shape[0]
     R = -(-n // 256)
     q = torch.full(((R + 1) * 256,), 4, dtype=torch.uint8,
@@ -76,7 +89,9 @@ def build_qrows(qcodes: torch.Tensor) -> torch.Tensor:
     sh = ((15 - torch.arange(16, device=q.device)) * 2)[None, :]
     pk = (q.clamp(max=3).to(torch.int64) << sh).sum(1).view(R + 1, 16)
     am = ((q >= 4).to(torch.int64) << sh).sum(1).view(R + 1, 16)
-    return torch.cat([pk[:-1], pk[1:], am[:-1], am[1:]], dim=1)
+    rows = torch.cat([pk[:-1], pk[1:], am[:-1], am[1:]], dim=1)
+    # values in [0, 2^32) to the int32 with the same bits
+    return (((rows + 0x80000000) & M32) - 0x80000000).to(torch.int32)
 
 
 def _words_at(rows: torch.Tensor, off: torch.Tensor, n: int) -> torch.Tensor:
@@ -121,10 +136,10 @@ def _clz32(x: torch.Tensor) -> torch.Tensor:
 
 
 # rows of the lane-state tensor (int64 [N_FIELDS, B]); csrc/seed.cu reads
-# the same rows
+# the same rows. F_STEPS counts the steps a lane has taken while live.
 (F_PHASE, F_CURSOR, F_EXT_START, F_EXT_POS, F_IK1, F_IK2, F_TRI_FAILED,
- F_DIR_SET, F_DIR_OFF, F_OUT_N, F_POISON) = range(11)
-N_FIELDS = 11
+ F_DIR_SET, F_DIR_OFF, F_OUT_N, F_POISON, F_STEPS) = range(12)
+N_FIELDS = 12
 
 SA_MODES = ("none", "xla", "pallas")   # the kernel's mode argument: index
 _SA_GATHER_K = 512     # pallas-mode compaction slots per iteration (tests
@@ -154,17 +169,21 @@ class ScanParams:
 
 @dataclasses.dataclass
 class ScanLanes:
-    """The device state of one scan round, updated in place by seed_step."""
+    """The device state of one scan round, updated in place by seed_step
+    and seed_scan."""
     starts: torch.Tensor  # int64 [B]
     stops: torch.Tensor   # int64 [B]
     st: torch.Tensor      # int64 [N_FIELDS, B] lane state (F_* rows)
     out: torch.Tensor     # int64 [B, max_out, 3] records (meta, k0, freq)
-    live: torch.Tensor    # int32 [2] the kernel's live-lane counters
+    live: torch.Tensor    # int32 [2] seed_step's live-lane counters
+    max_len: int          # longest lane, max(stops - starts, 0), in bases
 
     @staticmethod
     def start(starts: np.ndarray, stops: np.ndarray, max_out: int,
               device) -> "ScanLanes":
         B = len(starts)
+        lens = np.asarray(stops, dtype=np.int64) \
+            - np.asarray(starts, dtype=np.int64)
         st = np.zeros((N_FIELDS, B), dtype=np.int64)
         st[F_CURSOR] = starts
         st[F_POISON] = POISON_NONE
@@ -177,7 +196,8 @@ class ScanLanes:
             starts=up(starts), stops=up(stops), st=up(st),
             out=torch.zeros((B, max_out, 3), dtype=torch.int64,
                             device=device),
-            live=torch.zeros(2, dtype=torch.int32, device=device))
+            live=torch.zeros(2, dtype=torch.int32, device=device),
+            max_len=max(0, int(lens.max())) if B else 0)
 
 
 def seed_step_plain(dfm: DeviceFMIndex, q_rows: torch.Tensor,
@@ -218,7 +238,7 @@ def seed_step_plain(dfm: DeviceFMIndex, q_rows: torch.Tensor,
     # one metadata fetch: INIT lanes look at `cursor`, EXT at `ext_pos`;
     # the direct comparator's query window is the same row
     look = torch.where(in_ext, ext_pos, cursor).clamp(0, n_look - 1)
-    qrow = q_rows[look >> 8]                                     # [B, 64]
+    qrow = rank_ops.widen(q_rows[look >> 8])                     # [B, 64]
     cls12, real3, b1ok, real8, amb_w = _meta16(qrow, look & 255)
     cls_init = cls12 & ((1 << (2 * order)) - 1)
     cls8 = cls12 & 0xFFFF
@@ -293,7 +313,7 @@ def seed_step_plain(dfm: DeviceFMIndex, q_rows: torch.Tensor,
         p = dir_off + ext_pos             # text pos of next compare
         p_safe = p.clamp(0, seq_len - 1)
         jrow = p_safe >> 8
-        trow4 = dfm.text_rows[jrow >> 2]                         # [B, 128]
+        trow4 = rank_ops.widen(dfm.text_rows[jrow >> 2])         # [B, 128]
         trow = trow4.view(B, 4, 32).gather(
             1, (jrow & 3)[:, None, None].expand(B, 1, 32))[:, 0]
         tw = _words_at(trow, p_safe & 255, 16)
@@ -369,7 +389,8 @@ def seed_step_plain(dfm: DeviceFMIndex, q_rows: torch.Tensor,
         torch.where(start_ext, init_sz, torch.where(ext_ok, e_ik2, ik2)),
         (~reset & (tri_miss | (~ext_ok & tri_failed))).to(i64),
         (~reset & (in_dir_eff | dir_set)).to(i64),
-        dir_off, out_n + do_emit.to(i64), new_poison]))
+        dir_off, out_n + do_emit.to(i64), new_poison,
+        st[F_STEPS] + (in_init | in_ext).to(i64)]))
     live = ((new_phase == PHASE_INIT) & (new_cursor < stops_t)) \
         | (new_phase == PHASE_EXT)
     return live.sum()
@@ -393,25 +414,21 @@ def _sa_slots(dfm: DeviceFMIndex, lanes: ScanLanes, K: int, gather):
     return slot, gather(dfm.sa_rows, idx[:K])
 
 
-def _scan(dfm: DeviceFMIndex, q_rows: torch.Tensor, starts: np.ndarray,
-          stops: np.ndarray, prm: ScanParams, plain: bool):
-    """Run every lane [starts[i], stops[i]) to completion. Returns host
-    arrays (qs_rel, ls, k0, fr, lane, exits, poison, n_iter): the hits in
-    lane-major order with their lane index, and per lane the final cursor
-    and poison position. plain runs the plain torch step and gather on
-    any device; otherwise a CUDA device runs the kernels."""
-    if prm.min_seed_length <= 3:
-        raise ValueError("the triple-step shortcuts need min_seed_length > 3")
+def scan_lockstep(dfm: DeviceFMIndex, q_rows: torch.Tensor,
+                  lanes: ScanLanes, prm: ScanParams, plain: bool) -> int:
+    """Run every lane of `lanes` to its end in lock step, in place: one
+    step over all lanes per iteration, until none is live. plain runs the
+    plain torch step and gather on any device; otherwise a CUDA device
+    runs the seed_step and masked_gather kernels. Returns the iteration
+    count (the maximum of the lanes' F_STEPS)."""
     from gsalign_tpu_torch.ops import gather as gather_ops
     from gsalign_tpu_torch.ops import seed_cuda
     step = seed_step_plain if plain else seed_cuda.seed_step
     gather = gather_ops.masked_gather_plain if plain \
         else gather_ops.masked_gather
-    B = len(starts)
-    K = min(_SA_GATHER_K, B)
-    lanes = ScanLanes.start(starts, stops, prm.max_out, q_rows.device)
+    K = min(_SA_GATHER_K, lanes.st.shape[1])
     n_iter = 0
-    if bool((np.asarray(starts) < np.asarray(stops)).any()):
+    if lanes.max_len > 0:
         while True:
             slot = res_k = None
             if prm.sa_mode == "pallas":
@@ -420,14 +437,44 @@ def _scan(dfm: DeviceFMIndex, q_rows: torch.Tensor, starts: np.ndarray,
             n_iter += 1
             if int(live) == 0:            # the one host sync per iteration
                 break
+    return n_iter
 
-    st = lanes.st.cpu().numpy()
+
+def seed_scan_plain(dfm: DeviceFMIndex, q_rows: torch.Tensor,
+                    lanes: ScanLanes, prm: ScanParams) -> np.ndarray:
+    """The plain version of the seed_scan kernel (ops/seed_cuda.py): every
+    lane of `lanes` to its end, in place, by the lock-step loop of
+    seed_step_plain. Returns the final lane state on the host (int64
+    [N_FIELDS, B])."""
+    if prm.sa_mode == "pallas":
+        raise ValueError("seed_scan runs the xla and none SA modes: pallas "
+                         "mode couples the lanes and needs the lock step")
+    scan_lockstep(dfm, q_rows, lanes, prm, plain=True)
+    return lanes.st.cpu().numpy()
+
+
+def scan_lanes(dfm: DeviceFMIndex, q_rows: torch.Tensor, starts: np.ndarray,
+               stops: np.ndarray, prm: ScanParams, plain: bool = False):
+    """Run every lane [starts[i], stops[i]) to completion. Returns host
+    arrays (st, recs): the final lane state int64 [N_FIELDS, B] (F_CURSOR
+    the exit position, F_POISON, F_OUT_N, F_STEPS per lane) and the emitted
+    records int64 [sum(out_n), 3] in lane-major order. plain runs the plain
+    torch versions on any device; otherwise seed_scan runs the xla and none
+    modes, and the lock-step loop runs pallas mode."""
+    if prm.min_seed_length <= 3:
+        raise ValueError("the triple-step shortcuts need min_seed_length > 3")
+    from gsalign_tpu_torch.ops import seed_cuda
+    lanes = ScanLanes.start(starts, stops, prm.max_out, q_rows.device)
+    if prm.sa_mode == "pallas":
+        scan_lockstep(dfm, q_rows, lanes, prm, plain)
+        st = lanes.st.cpu().numpy()
+    elif plain:
+        st = seed_scan_plain(dfm, q_rows, lanes, prm)
+    else:
+        st = seed_cuda.seed_scan(dfm, q_rows, lanes, prm)
     keep = torch.arange(prm.max_out, device=q_rows.device)[None, :] \
         < lanes.st[F_OUT_N][:, None]
-    recs = lanes.out[keep].cpu().numpy()            # lane-major order
-    lane = np.repeat(np.arange(B, dtype=np.int64), st[F_OUT_N])
-    return (recs[:, 0] & 0xFFFF, recs[:, 0] >> 16, recs[:, 1], recs[:, 2],
-            lane, st[F_CURSOR], st[F_POISON], n_iter)
+    return st, lanes.out[keep].cpu().numpy()            # lane-major order
 
 
 def find_seeds_all(dfm: DeviceFMIndex,
@@ -438,18 +485,23 @@ def find_seeds_all(dfm: DeviceFMIndex,
                    chunk: int = 10000,
                    max_out_cap: Optional[int] = None,
                    stats: Optional[dict] = None,
-                   plain: bool = False):
+                   plain: bool = False,
+                   rounds: Optional[list] = None):
     """Seed ALL query chromosomes, exactly reproducing the reference's
     per-chunk sequential scan: one lane per chunk of every chromosome, all
-    in one device loop.
+    in one device scan per round (scan_lanes).
 
     Returns [(q_pos, r_pos, length), ...] per chromosome, each sorted by
     (PosDiff, qPos), identical to the reference scan. With `stats`, records
-    the loop's iteration count per round ("scan_iterations") and the lane
-    count ("scan_lanes"). GSALIGN_SA_MODE picks the SA mode (see
-    pick_sa_mode). plain runs the plain torch versions of the three seed-stage kernels
-    (seed_step, masked_gather, resolve_sa) on any device: the comparison
-    with the kernels on a card uses it."""
+    per round the most steps any lane took ("scan_iterations": the
+    lock-step loop's iteration count) and the lane count ("scan_lanes").
+    With `rounds`, appends each round's scan_lanes arguments and results,
+    (q_rows, starts, stops, prm, st, recs): the tests and the comparison of
+    the kernels with their plain versions scan these lanes again.
+    GSALIGN_SA_MODE picks the SA mode (see pick_sa_mode). plain runs the
+    plain torch versions of the seed-stage kernels (seed_scan, seed_step,
+    masked_gather, resolve_sa) on any device: the comparison with the
+    kernels on a card uses it."""
     if chunk > 0xFFFF:
         raise ValueError("seed chunk too large for the packed emit record")
     sa_mode = pick_sa_mode(dfm)
@@ -483,10 +535,15 @@ def find_seeds_all(dfm: DeviceFMIndex,
     iters = []
     # each round advances an overflowing lane by >= max_out hits
     for _round in range(2 + -(-chunk // max(1, max_out))):
-        qs_rel, ls, k0, fr, lane, _, poison, n_iter = _scan(
-            dfm, q_rows, starts, stops, prm, plain)
-        iters.append(n_iter)
-        qs = qs_rel + starts[lane]
+        st, recs = scan_lanes(dfm, q_rows, starts, stops, prm, plain)
+        if rounds is not None:
+            rounds.append((q_rows, starts, stops, prm, st, recs))
+        iters.append(int(st[F_STEPS].max()) if len(starts) else 0)
+        lane = np.repeat(np.arange(len(starts), dtype=np.int64),
+                         st[F_OUT_N])
+        ls, k0, fr = recs[:, 0] >> 16, recs[:, 1], recs[:, 2]
+        poison = st[F_POISON]
+        qs = (recs[:, 0] & 0xFFFF) + starts[lane]
         keep = qs < poison[lane]
         hits_q.append(qs[keep])
         hits_l.append(ls[keep])

@@ -16,7 +16,6 @@ import time
 from typing import List, Optional
 
 import numpy as np
-import torch
 
 from gsalign_tpu_torch.config import AlignConfig
 from gsalign_tpu_torch.genome.coords import ChrLocIndex, gen_coordinate_info
@@ -27,13 +26,13 @@ from gsalign_tpu_torch.ops.seeding import find_seeds_all
 from gsalign_tpu_torch.pipeline import blocks as blk_ops
 from gsalign_tpu_torch.pipeline import chain
 from gsalign_tpu_torch.ops import dp as dp_ops
-from gsalign_tpu_torch.ops import dp_cuda
 from gsalign_tpu_torch.pipeline.generate import (finish_alignments,
                                                  plan_alignments)
 from gsalign_tpu_torch.pipeline.output import (write_aln, write_dotplot,
                                                write_maf)
 from gsalign_tpu_torch.pipeline.variants import (VariantCollector,
                                                  identify_variants, write_vcf)
+from gsalign_tpu_torch.utils.device import resolve_device
 from gsalign_tpu_torch.utils.trace import StageTimer, device_trace
 
 
@@ -101,19 +100,19 @@ def compare_genomes(fm: FMIndex,
                     cfg: AlignConfig,
                     output_prefix: Optional[str] = None,
                     verbose: bool = True,
-                    device="cpu"):
+                    device=None):
     """Run the full comparison. query_records: [(name, ascii uint8[]), ...].
 
     The two batched device stages — the seed scan and the gap DP — run on
-    `device` (a torch device: "cpu" or "cuda"); everything else is host
-    numpy. On a CUDA device the DP runs in the hand-written kernels
+    `device`: the CUDA card when None (an error without one), the CPU for
+    "cpu"; everything else is host numpy. On a CUDA device the DP runs in the hand-written kernels
     (ops/dp_cuda.py), on the CPU in their plain torch version. The pass-2 worker threads run host code only: no kernel is
     launched from them.
 
     Returns (RunStats, VariantCollector, [ChromosomeResult]).
     """
     cfg = cfg.effective()
-    device = torch.device(device)
+    device = resolve_device(device)
     genome = fm.genome
     chr_index = ChrLocIndex(genome)
     ref_chars = genome.chars_fwd_rc()
@@ -166,7 +165,7 @@ def compare_genomes(fm: FMIndex,
     # arrive in one device->host copy.
     aligner = dp_ops.FragmentAligner(
         bucket_sizes=cfg.dp_buckets, batch_cells=cfg.dp_batch_cells,
-        dp_fn=dp_cuda.dp_align, device=device)
+        device=device)
     planned = []                   # (qname, qry_chars, blocks, jobs, lo, hi)
     for qc_idx, (qname, qry_chars) in enumerate(query_records):
         log(f"\tProcess query chromosome: {qname}...", verbose)

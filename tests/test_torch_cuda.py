@@ -1,5 +1,5 @@
-"""The hand-written kernels (DP, masked_gather, seed_step, resolve_sa)
-against their plain torch versions on a CUDA card. Every test skips
+"""The hand-written kernels (DP, masked_gather, seed_scan, seed_step,
+resolve_sa) against their plain torch versions on a CUDA card. Every test skips
 without a card. This file imports no JAX, so it runs on a machine without
 it:
 
@@ -112,8 +112,9 @@ def genome_and_queries(seed, lens=(3000, 1200)):
 @pytest.mark.parametrize("sensitive", [False, True])
 def test_seed_scan_kernels_match_plain_on_card(card, monkeypatch, sa_intv,
                                                sa_mode, K, sensitive):
-    """The whole scan through seed_step (and masked_gather, resolve_sa)
-    against the plain step on the same card: the same seeds, and the same
+    """The whole scan through its kernels (seed_scan, or in pallas mode
+    seed_step and masked_gather; resolve_sa on a sampled index) against
+    the plain step on the same card: the same seeds, and the same
     iteration count in every round."""
     monkeypatch.setattr(seeding, "_SA_GATHER_K", K)
     monkeypatch.setenv("GSALIGN_SA_MODE", sa_mode)
@@ -126,17 +127,89 @@ def test_seed_scan_kernels_match_plain_on_card(card, monkeypatch, sa_intv,
     want = seeding.find_seeds_all(dfm, queries, plain=True,
                                   stats=plain_stats, **kw)
     n0 = (seed_cuda.seed_step.launches, gather.masked_gather.launches,
-          seed_cuda.resolve_sa.launches)
+          seed_cuda.resolve_sa.launches, seed_cuda.seed_scan.launches)
     got = seeding.find_seeds_all(dfm, queries, stats=stats, **kw)
     assert stats == plain_stats
     for a, b in zip(got, want):
         for x, y in zip(a, b):
             np.testing.assert_array_equal(x, y)
-    assert seed_cuda.seed_step.launches - n0[0] == sum(stats[
-        "scan_iterations"])
+    lock = sa_mode == "pallas" and sa_intv == 1
+    # pallas mode: one seed_step per iteration; else one seed_scan a round
+    assert seed_cuda.seed_step.launches - n0[0] == (
+        sum(stats["scan_iterations"]) if lock else 0)
+    assert seed_cuda.seed_scan.launches - n0[3] == (
+        0 if lock else len(stats["scan_iterations"]))
     assert (gather.masked_gather.launches > n0[1]) == (sa_mode == "pallas"
                                                        and sa_intv == 1)
     assert (seed_cuda.resolve_sa.launches > n0[2]) == (sa_intv > 1)
+
+
+def scan_cases(dfm, queries, **kw):
+    """find_seeds_all's scan_lanes inputs, one per round: [(q_rows, starts,
+    stops, prm)]."""
+    rounds = []
+    seeding.find_seeds_all(dfm, queries, rounds=rounds, **kw)
+    return [r[:4] for r in rounds]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [None, 4])
+@pytest.mark.parametrize("sensitive", [False, True])
+@pytest.mark.parametrize("sa_intv", [1, 8])
+def test_seed_scan_matches_plain_and_lockstep_on_card(card, monkeypatch,
+                                                      sa_intv, sensitive,
+                                                      cap):
+    """seed_scan against the plain scan and against the lock-step
+    seed_step scan, round by round (a small emit buffer forces overflow
+    re-scans): equal records and equal final lane state (exits, poison,
+    per-lane steps), on all lanes, on one lane and on a lane count that is
+    not a multiple of the block's four."""
+    monkeypatch.delenv("GSALIGN_SA_MODE", raising=False)
+    g, queries = genome_and_queries(sa_intv + 50)
+    queries.append(g.codes_fwd[100:1100].copy())   # direct mode past 256
+    dfm = rank.DeviceFMIndex.from_host(build_fmindex(g, sa_intv=sa_intv),
+                                       card)
+    cases = scan_cases(dfm, queries, min_seed_length=12,
+                       sensitive=sensitive, chunk=300, max_out_cap=cap)
+    assert (len(cases) > 1) == (cap is not None)
+    assert len(cases[0][1]) % 4 != 0
+    for q_rows, starts, stops, prm in cases:
+        for sub in (slice(None), slice(0, 1), slice(1, 7)):
+            s, e = starts[sub], stops[sub]
+            if len(s) == 0:
+                continue
+            n0 = (seed_cuda.seed_scan.launches, seed_cuda.seed_step.launches)
+            st, recs = seeding.scan_lanes(dfm, q_rows, s, e, prm)
+            assert seed_cuda.seed_scan.launches == n0[0] + 1
+            assert seed_cuda.seed_step.launches == n0[1]
+            st_p, recs_p = seeding.scan_lanes(dfm, q_rows, s, e, prm,
+                                              plain=True)
+            np.testing.assert_array_equal(st, st_p)
+            np.testing.assert_array_equal(recs, recs_p)
+            lanes = seeding.ScanLanes.start(s, e, prm.max_out, card)
+            n_iter = seeding.scan_lockstep(dfm, q_rows, lanes, prm,
+                                           plain=False)
+            assert seed_cuda.seed_step.launches - n0[1] == n_iter \
+                == st[seeding.F_STEPS].max()
+            np.testing.assert_array_equal(lanes.st.cpu().numpy(), st)
+            keep = np.arange(prm.max_out)[None, :] \
+                < st[seeding.F_OUT_N][:, None]
+            np.testing.assert_array_equal(lanes.out.cpu().numpy()[keep],
+                                          recs)
+
+
+@pytest.mark.cuda
+def test_seed_scan_raises_on_the_step_limit(card, monkeypatch):
+    """A lane that would take more steps than the limit sets the flag
+    that the wrapper turns into an exception."""
+    monkeypatch.delenv("GSALIGN_SA_MODE", raising=False)
+    g, queries = genome_and_queries(7)
+    dfm = rank.DeviceFMIndex.from_host(build_fmindex(g), card)
+    q_rows, starts, stops, prm = scan_cases(
+        dfm, queries, min_seed_length=12, chunk=300)[0]
+    monkeypatch.setattr(seed_cuda, "_step_cap", lambda max_len: 5)
+    with pytest.raises(RuntimeError, match="step limit 5"):
+        seeding.scan_lanes(dfm, q_rows, starts, stops, prm)
 
 
 @pytest.mark.cuda
@@ -157,7 +230,8 @@ def test_seed_wrappers_raise_for_other_devices(card):
     """Tables on the CPU with ranks on the card: the kernel is not
     launched on them."""
     g, _ = genome_and_queries(3)
-    cpu_tables = rank.DeviceFMIndex.from_host(build_fmindex(g, sa_intv=8))
+    cpu_tables = rank.DeviceFMIndex.from_host(build_fmindex(g, sa_intv=8),
+                                              "cpu")
     k = torch.zeros(3, dtype=torch.int64, device=card)
     n0 = seed_cuda.resolve_sa.launches
     with pytest.raises(ValueError, match="not cuda"):

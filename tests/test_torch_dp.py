@@ -98,7 +98,8 @@ def test_fragment_aligner_matches_jax_align_fragments():
     a, b, ops3000 = pair3000()
     assert tdp.bucket_of(max(len(a), len(b)), buckets) == 3072
     want.append(ops3000)
-    got = tdp.align_fragments(rfs + [a], qfs + [b], bucket_sizes=buckets)
+    got = tdp.align_fragments(rfs + [a], qfs + [b], bucket_sizes=buckets,
+                              device="cpu")
     assert len(got) == len(want) == len(lens) + 1
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
@@ -109,8 +110,8 @@ def test_fragment_aligner_results_independent_of_submit_split():
     rfs = [rng.integers(0, 4, int(n)).astype(np.uint8)
            for n in rng.integers(5, 300, 20)]
     qfs = [np.roll(r, 1) for r in rfs]
-    one = tdp.align_fragments(rfs, qfs)
-    fa = tdp.FragmentAligner(batch_cells=1 << 14)
+    one = tdp.align_fragments(rfs, qfs, device="cpu")
+    fa = tdp.FragmentAligner(batch_cells=1 << 14, device="cpu")
     assert fa.submit(rfs[:7], qfs[:7]) == 0
     assert fa.submit(rfs[7:], qfs[7:]) == 7
     for a, b in zip(one, fa.finish()):

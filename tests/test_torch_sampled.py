@@ -44,7 +44,7 @@ def sampled_pair(chroms, sa_intv):
     tfm = build_fmindex(g, sa_intv=sa_intv)
     jdfm = jrank.DeviceFMIndex.from_host(
         jbuild(g, sa_intv=sa_intv, prefer_device=False))
-    dfm = trank.DeviceFMIndex.from_host(tfm)
+    dfm = trank.DeviceFMIndex.from_host(tfm, "cpu")
     assert not dfm.direct_ok and not jdfm.direct_ok
     assert dfm.host_sa is None and dfm.sa_intv == sa_intv
     return tfm, dfm, jdfm, full
@@ -119,8 +119,8 @@ def test_sampled_seeds_equal_full_index_seeds():
     rng = np.random.default_rng(31)
     refs = [random_genome(rng, 2200), random_genome(rng, 800)]
     _, dfm, _, _ = sampled_pair(refs, 8)
-    full = trank.DeviceFMIndex.from_host(build_fmindex(genome_of(refs),
-                                                       sa_intv=1))
+    full = trank.DeviceFMIndex.from_host(
+        build_fmindex(genome_of(refs), sa_intv=1), "cpu")
     queries = [mutate(r, rng, 0.01) for r in refs]
     kw = dict(min_seed_length=15, chunk=700)
     for a, b in zip(find_seeds_all(dfm, queries, **kw),

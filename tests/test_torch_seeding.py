@@ -31,8 +31,8 @@ def index_pair(chroms):
     g = genome_of(chroms)
     tfm = build_fmindex(g, sa_intv=1)
     jfm = jbuild(g, sa_intv=1, prefer_device=False)
-    return tfm, DeviceFMIndex.from_host(tfm), jrank.DeviceFMIndex.from_host(
-        jfm)
+    return (tfm, DeviceFMIndex.from_host(tfm, "cpu"),
+            jrank.DeviceFMIndex.from_host(jfm))
 
 
 def mutate(codes, rng, sub_rate=0.02):
@@ -134,7 +134,7 @@ def test_seeding_on_jax_built_tables():
     fm, dfm, jdfm = index_pair([ref])
     alt = DeviceFMIndex.from_tables(
         tables_from_jax(jdfm), host_sa=np.asarray(jdfm._host_sa),
-        seq_len=jdfm.seq_len, primary=jdfm.primary)
+        seq_len=jdfm.seq_len, primary=jdfm.primary, device="cpu")
     qry = mutate(ref, rng)
     a = find_seeds(dfm, qry, min_seed_length=15, chunk=700)
     b = find_seeds(alt, qry, min_seed_length=15, chunk=700)
