@@ -3,21 +3,25 @@
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # everything below
+    python3 chip_smoke.py dp         # phases 1 and 2 only (the DP kernels)
+    python3 chip_smoke.py dp-sweep   # those, and the DP launch plans timed
 
 Phases (each raises on failure; nothing is caught):
   1. the card (nvidia-smi name and power limit), the torch and CUDA
      versions, and the build of every kernel source in
      gsalign_tpu_torch/csrc/ (one nvcc each, in parallel);
   2. each DP kernel (dp_small, dp_any) against its plain torch version on
-     the card at every bucket width the aligner uses, and on the ksw2
-     oracle cases of tests/golden: op codes must be equal;
+     the card at every bucket width the aligner uses (L 256 through both),
+     and on the ksw2 oracle cases of tests/golden: op codes must be equal;
   3. 100 kb: the port's CLI on the card, byte-identical to the C reference
      outputs in tests/golden (default, -sen, -fmt 2);
   4. 4.6 Mb (E. coli scale, make_pair(4_600_000)): index build and align
      through the CLI on the card (the main path), with the JAX package's
      output counts and sha256 values, and the DP kernels and seed_scan
-     launched (and no seed_step); then the same align with
+     launched (and no seed_step), one [dp] line for each DP launch of that
+     run and both DP kernels held against the plain version on each launch's
+     own inputs (ops equal) and timed there; then the same align with
      GSALIGN_SA_MODE=pallas, which launches the lock-step seed_step and
      masked_gather (and no seed_scan);
   5. 12 Mb (yeast scale, make_pair(12_000_000)): align through the CLI in
@@ -161,11 +165,15 @@ def run_cli(*argv) -> str:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds of fn() over reps runs, by CUDA events."""
+    """Mean device milliseconds of fn() over reps runs, by CUDA events.
+    The launches queue up behind a spin kernel (about 0.2 ms a run), so
+    where a kernel is shorter than the host's call that launches it the
+    events read the card, not the host."""
     import torch
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(reps * 3.5e5))
     start.record()
     for _ in range(reps):
         fn()
@@ -192,7 +200,8 @@ def phase_card() -> str:
         say(f"[build] gsalign_tpu_torch/csrc/{name}.cu in "
             f"{info['seconds']:.1f} s (all sources in parallel)")
         for ln in info.get("ptxas", "").splitlines():
-            if "registers" in ln or "Compiling entry" in ln:
+            if "registers" in ln or "Compiling entry" in ln \
+                    or "spill" in ln:
                 say(f"[ptxas] {ln.strip()}")
     dp_cuda.build()
     gather.build()
@@ -200,10 +209,12 @@ def phase_card() -> str:
     return card
 
 
-def phase_kernels(seed: int = 0, lengths=None) -> dict:
-    """Each kernel against its plain version at full aligner batches.
-    Returns per-kernel totals {name: {ms, plain_ms, max_abs_err, bound_ms,
-    bound_by}}, summed over the widths."""
+def phase_kernels(seed: int = 0) -> dict:
+    """Each kernel against its plain version at full aligner batches, at
+    every bucket width it can take; L 256 through both. Returns per-kernel
+    totals {name: {ms, plain_ms, max_abs_err, bound_ms, bound_by}}, summed
+    over the widths at which dp_align takes that kernel (dp_small's L 256
+    is checked and printed, and left out of the sums)."""
     import torch
     from gsalign_tpu_torch.ops import dp as dp_ops
     from gsalign_tpu_torch.ops import dp_cuda
@@ -214,11 +225,7 @@ def phase_kernels(seed: int = 0, lengths=None) -> dict:
     # out of the timed calls
     warm = [torch.from_numpy(a).cuda() for a in make_batch(rng, 64, 8)]
     dp_ops.dp_align_batch(*warm, 64)
-    plan = [(L, dp_cuda.dp_small) for L in SMALL_LS] + \
-        [(L, dp_cuda.dp_any) for L in ANY_LS]
-    for L, fn in plan:
-        if lengths is not None and L not in lengths:
-            continue
+    for L in SMALL_LS + ANY_LS:
         B = min(1024, max(1, BATCH_CELLS // (L * L)))
         host = make_batch(rng, L, B)
         args = [torch.from_numpy(a).cuda() for a in host]
@@ -230,25 +237,98 @@ def phase_kernels(seed: int = 0, lengths=None) -> dict:
         plain = dp_ops.dp_align_batch(*args, L)
         torch.cuda.synchronize()
         plain_ms = (time.time() - t0) * 1e3
-        got = fn(*args, L)
-        torch.cuda.synchronize()
-        err = max_abs_err(got.cpu().numpy(), plain.cpu().numpy())
-        if err:
-            raise AssertionError(f"{fn.__name__} L={L}: ops differ from "
-                                 f"the plain version (max |diff| {err})")
-        ms = cuda_ms(lambda: fn(*args, L), reps=5)
-        say(f"[kernel] {fn.__name__:8s} L={L:5d} B={B:5d}  kernel "
-            f"{ms:10.3f} ms  plain {plain_ms:10.1f} ms  bound "
-            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, {cells} cells)  "
-            f"ops equal")
-        tot = totals.setdefault(fn.__name__, {
-            "ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0, "bound_ms": 0.0,
-            "bound_by": bnd["bound_by"]})
-        tot["ms"] += ms
-        tot["plain_ms"] += plain_ms
-        tot["bound_ms"] += bnd["bound_ms"]
-        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        plain = plain.cpu().numpy()
+        # dp_any as its plan has it; at L 256 also as a chain of two warps
+        # of 4 rows a lane, beside its one warp of 8
+        runs = [(dp_cuda.dp_small, None)] if L <= dp_cuda.SMALL_MAX_L else []
+        if L > dp_cuda.SMALL_BEST_L:
+            runs.append((dp_cuda.dp_any, None))
+        if L == dp_cuda.SMALL_MAX_L:
+            runs.append((dp_cuda.dp_any, (4, 2, 1)))
+        for fn, forced in runs:
+            with forced_plan(forced):
+                err = max_abs_err(fn(*args, L).cpu().numpy(), plain)
+                if err:
+                    raise AssertionError(
+                        f"{fn.__name__} L={L} {forced or ''}: ops differ "
+                        f"from the plain version (max |diff| {err})")
+                ms = cuda_ms(lambda: fn(*args, L), reps=5)
+            taken = forced is None and \
+                (fn is dp_cuda.dp_small) == (L <= dp_cuda.SMALL_BEST_L)
+            say(f"[kernel] {fn.__name__:8s} L={L:5d} B={B:5d}  kernel "
+                f"{ms:10.3f} ms  plain {plain_ms:10.1f} ms  bound "
+                f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, {cells} cells)  "
+                f"ops equal" + ("" if taken else
+                                f"  (not what dp_align takes at this width"
+                                f"{f', plan {forced}' if forced else ''}: "
+                                f"not in the sums)"))
+            if not taken:
+                continue
+            tot = totals.setdefault(fn.__name__, {
+                "ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0, "bound_ms": 0.0,
+                "bound_by": bnd["bound_by"]})
+            tot["ms"] += ms
+            tot["plain_ms"] += plain_ms
+            tot["bound_ms"] += bnd["bound_ms"]
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
     return totals
+
+
+@contextlib.contextmanager
+def forced_plan(plan):
+    """dp_any launched with `plan` (K, warps a block, blocks a cluster)
+    inside the block; its own plan for None."""
+    from gsalign_tpu_torch.ops import dp_cuda
+    own = dp_cuda.any_plan
+    if plan is not None:
+        dp_cuda.any_plan = lambda B, L, n_sm: plan
+    try:
+        yield
+    finally:
+        dp_cuda.any_plan = own
+
+
+def phase_main_shapes(shapes) -> dict:
+    """The DP launches of the main path, with the inputs FragmentAligner
+    gave them: one [dp] line a launch, and each kernel that takes the width
+    held against the plain version on those inputs (ops must be equal) and
+    timed there against the bound of phase_kernels. Returns {kernel: max
+    |diff|} (all 0, or it raises)."""
+    import torch
+    from gsalign_tpu_torch.ops import dp as dp_ops
+    from gsalign_tpu_torch.ops import dp_cuda
+    from dp_cases import max_abs_err
+    errs = {}
+    for name, (L, q, t, ql_d, tl_d) in shapes:
+        B = q.shape[0]
+        ql_d, tl_d = ql_d.clamp(0, L), tl_d.clamp(0, L)
+        ql, tl = ql_d.cpu().numpy(), tl_d.cpu().numpy()
+        cells = int((ql.astype(np.int64) * tl).sum())
+        plan = dp_cuda.any_plan(B, L, dp_cuda.sm_count(q.device)) \
+            if name == "dp_any" else dp_cuda.small_plan(L)
+        say(f"[dp] {name} L={L} B={B} cells={cells} (longest query {ql.max()}"
+            f", longest target {tl.max()}; plan {plan})")
+        args = (q, t, ql_d, tl_d)
+        bnd = bound(2 * B * L + 8 * B + 2 * B * L, cells * DP_OPS_PER_CELL)
+        t0 = time.time()
+        plain = dp_ops.dp_align_batch(*args, L).cpu().numpy()
+        plain_ms = (time.time() - t0) * 1e3
+        for fn in (dp_cuda.dp_small, dp_cuda.dp_any):
+            if fn is dp_cuda.dp_small and L > dp_cuda.SMALL_MAX_L:
+                continue
+            err = max_abs_err(fn(*args, L).cpu().numpy(), plain)
+            if err:
+                raise AssertionError(
+                    f"{fn.__name__} at the main path's L={L} B={B}: ops "
+                    f"differ from the plain version (max |diff| {err})")
+            errs[fn.__name__] = max(errs.get(fn.__name__, 0), err)
+            ms = cuda_ms(lambda: fn(*args, L), reps=20)
+            say(f"[kernel] {fn.__name__:8s} L={L:5d} B={B:5d}  kernel "
+                f"{ms:10.3f} ms  plain {plain_ms:10.1f} ms  bound "
+                f"{bnd['bound_ms']:.5f} ms ({bnd['bound_by']}, {cells} "
+                f"cells)  ops equal  the inputs of a main-path launch of "
+                f"{name}")
+    return errs
 
 
 def phase_oracle():
@@ -338,6 +418,8 @@ def align_run(tag: str, d: str, idx: str, expect: dict, sa_mode=None,
     fns = counters()
     for fn in fns.values():
         fn.launches = 0
+    for name in ("dp_small", "dp_any"):
+        fns[name].shapes.clear()
     t0 = time.time()
     with sa_mode_env(sa_mode):
         out = run_cli("-i", idx, "-q", f"{d}/qry.fa", "-o", f"{d}/out",
@@ -376,7 +458,9 @@ def align_run(tag: str, d: str, idx: str, expect: dict, sa_mode=None,
     if extra:
         raise AssertionError(f"{tag}: {extra} ran off its path: {launches}")
     return {"launches": launches, "wall": wall, "seed_s": seed_s,
-            "iterations": [int(x) for x in it.group(2).split(",")]}
+            "iterations": [int(x) for x in it.group(2).split(",")],
+            "dp_shapes": [(name, shape) for name in ("dp_small", "dp_any")
+                          for shape in fns[name].shapes]}
 
 
 def phase_46mb() -> dict:
@@ -391,6 +475,12 @@ def phase_46mb() -> dict:
         "4.6mb", d, f"{d}/idx", EXPECT_46,
         must_launch=("dp_small", "dp_any", "seed_scan"),
         must_not_launch=("seed_step", "masked_gather", "resolve_sa"))}
+    main = runs["4.6mb"]
+    if len(main["dp_shapes"]) != main["launches"]["dp_small"] \
+            + main["launches"]["dp_any"]:
+        raise AssertionError("4.6mb: the wrappers kept fewer launches' "
+                             "inputs than the main path made")
+    main["dp_errs"] = phase_main_shapes(main.pop("dp_shapes"))
     runs["4.6mb-pallas"] = align_run(
         "4.6mb-pallas", d, f"{d}/idx", EXPECT_46, sa_mode="pallas",
         must_launch=("dp_small", "dp_any", "seed_step", "masked_gather"),
@@ -784,6 +874,62 @@ def phase_profile():
             say(f"[profile]   {n:6d} x {us / n:8.2f} us  {name[:90]}")
 
 
+def phase_sweep():
+    """Times the plans the wrappers could pick (rows a lane K, warps a
+    block, blocks a cluster) at the widths and batches of phase_kernels and
+    at a few problems a launch, in turns within one process; ops must equal
+    the default plan's. Prints [sweep] lines; changes nothing."""
+    import torch
+    from gsalign_tpu_torch.ops import dp_cuda
+    from dp_cases import make_batch, max_abs_err
+    rng = np.random.default_rng(0)
+    small_plan, any_plan = dp_cuda.small_plan, dp_cuda.any_plan
+
+    def run(fn, args, L, tag):
+        got = fn(*args, L).cpu().numpy()
+        return got, cuda_ms(lambda: fn(*args, L), reps=10), tag
+    try:
+        for L in SMALL_LS:
+            B = min(1024, BATCH_CELLS // (L * L))
+            args = [torch.from_numpy(a).cuda() for a in make_batch(rng, L, B)]
+            dp_cuda.small_plan = small_plan
+            ref = dp_cuda.dp_small(*args, L).cpu().numpy()
+            K0 = small_plan(L)[0]
+            for K in sorted({K0, 8}):
+                for wpb in (1, 2, 3, 4, 6, 8, 16):  # warps (problems) a block
+                    if wpb * (L * K * 16 + L) > 227 * 1024:
+                        continue
+                    dp_cuda.small_plan = lambda L, p=(K, wpb): p
+                    got, ms, _ = run(dp_cuda.dp_small, args, L, "")
+                    if max_abs_err(got, ref):
+                        raise AssertionError(f"dp_small K={K} wpb={wpb}")
+                    say(f"[sweep] dp_small L={L} B={B} K={K} wpb={wpb}: "
+                        f"{ms:.4f} ms")
+        for L, Bs in ((256, (1024,)), (512, (256, 4)), (1024, (64, 2)),
+                      (2048, (16, 1)), (3072, (7,)), (5120, (2, 1))):
+            for B in Bs:
+                args = [torch.from_numpy(a).cuda()
+                        for a in make_batch(rng, L, B)]
+                dp_cuda.any_plan = any_plan
+                ref = dp_cuda.dp_any(*args, L).cpu().numpy()
+                say(f"[sweep] dp_any L={L} B={B} default plan "
+                    f"{any_plan(B, L, dp_cuda.sm_count(args[0].device))}")
+                for K in (2, 4, 8):
+                    chain = -(-L // (32 * K))
+                    for cs in (1, 2, 4, 8):
+                        if B * cs > 1024 or (cs > 1 and chain < 2 * cs):
+                            continue
+                        wpb = min(dp_cuda.MAX_WARPS, -(-chain // cs))
+                        dp_cuda.any_plan = lambda B, L, n_sm, p=(K, wpb, cs): p
+                        got, ms, _ = run(dp_cuda.dp_any, args, L, "")
+                        if max_abs_err(got, ref):
+                            raise AssertionError(f"dp_any {K} {wpb} {cs}")
+                        say(f"[sweep] dp_any L={L} B={B} K={K} wpb={wpb} "
+                            f"cs={cs}: {ms:.4f} ms")
+    finally:
+        dp_cuda.small_plan, dp_cuda.any_plan = small_plan, any_plan
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -798,6 +944,15 @@ def main() -> int:
     sys.path[:0] = [REPO, os.path.join(REPO, "tests")]
     os.environ["GSALIGN_PLATFORM"] = "cuda"
     shutil.rmtree(WORK, ignore_errors=True)
+    if sys.argv[1:] in (["dp"], ["dp-sweep"]):
+        # the DP kernels alone (seconds): build, kernel against plain,
+        # oracle; with dp-sweep also the plans' times. No result lines.
+        phase_card()
+        phase_kernels()
+        phase_oracle()
+        if sys.argv[1] == "dp-sweep":
+            phase_sweep()
+        return 0
     try:
         phase_card()
         totals = phase_kernels()
@@ -810,6 +965,8 @@ def main() -> int:
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     main_path = runs["4.6mb"]["launches"]
+    for name, err in runs["4.6mb"]["dp_errs"].items():
+        totals[name]["max_abs_err"] = max(totals[name]["max_abs_err"], err)
     say("[summary] " + "; ".join(
         f"{tag}: wall {r['wall']:.2f} s, seed {r['seed_s']:.2f} s, "
         f"iterations {r['iterations']}" for tag, r in runs.items()))

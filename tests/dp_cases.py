@@ -104,3 +104,75 @@ def oracle_rows(cases, ops: np.ndarray):
                                   np.frombuffer(s2.encode(), np.uint8))
         rows.append([a1.tobytes().decode(), a2.tobytes().decode()])
     return rows
+
+
+def edge_batch(rng, L):
+    """Eight problems at the edges of the contract: an empty query, an
+    empty target, both empty, one base against a full row and the reverse,
+    both full, lengths above L (the wrappers clamp them to L), and a
+    target one row into a second warp's strip at 32 rows a warp."""
+    q, t, ql, tl = make_batch(rng, L, 8)
+    ql[:] = [0, 5, 0, 1, L, L, L + 9, 3]
+    tl[:] = [7, 0, 0, L, 1, L, L + 5, 33]
+    return q, t, ql, tl
+
+
+def strip_fill(q, t, ql, tl, strip_rows):
+    """Direction nibbles of one problem, D[i][j] for target row i and query
+    column j, filled column by column in strips of `strip_rows` rows (the
+    order of the CUDA kernels' warp strips). A scalar reference that uses
+    only what the recurrence allows: x and v of the cell above, u and y of
+    the cell to the left, and the cell-local borders (column 0: u = gap
+    open if i > 0 else 0, y = 0; row 0: x = 0, v = gap open if j > 0 else
+    0)."""
+    from gsalign_tpu_torch.ops.dp import (GAP_OPEN, MATCH, MAX_SC, MISMATCH,
+                                          QE2, WILDCARD)
+    q = [int(c) for c in q[:ql]]
+    t = [int(c) for c in t[:tl]]
+    D = np.zeros((tl, ql), np.uint8)
+    x_row = [0] * ql                      # x, v of the strip above's last row
+    v_row = [GAP_OPEN if j > 0 else 0 for j in range(ql)]
+    for i0 in range(0, tl, strip_rows):
+        rows = range(i0, min(i0 + strip_rows, tl))
+        u = {i: (GAP_OPEN if i > 0 else 0) for i in rows}
+        y = {i: 0 for i in rows}
+        for j in range(ql):
+            x, v = x_row[j], v_row[j]
+            for i in rows:
+                uu, yy = u[i], y[i]
+                sc = 0 if t[i] >= WILDCARD or q[j] >= WILDCARD else (
+                    MATCH if t[i] == q[j] else MISMATCH)
+                a, b, z = x + v, yy + uu, sc + QE2
+                d = 1 if a > z else 0
+                z = max(z, a)
+                d = 2 if b > z else d
+                z = min(max(z, b), MAX_SC)
+                u[i], v = z - v, z - uu
+                a2, b2 = a - (z - GAP_OPEN), b - (z - GAP_OPEN)
+                x, y[i] = max(a2, 0), max(b2, 0)
+                D[i, j] = d | (4 if a2 > 0 else 0) | (8 if b2 > 0 else 0)
+            x_row[j], v_row[j] = x, v
+    return D
+
+
+def scalar_backtrack(D, ql, tl):
+    """ksw2's backtrack state machine over D[i][j]: reverse-order ops."""
+    i, j, st, ops = tl - 1, ql - 1, 0, []
+    while i >= 0 and j >= 0:
+        tmp = int(D[i, j])
+        s = (tmp & 3) if st == 0 else (st if (tmp >> (st + 1)) & 1 else 0)
+        if s == 0:
+            s = tmp & 3
+        st = s
+        if s == 0:
+            ops.append(0)
+            i -= 1
+            j -= 1
+        elif s in (1, 3):
+            ops.append(1)
+            i -= 1
+        else:
+            ops.append(2)
+            j -= 1
+    ops += [1] * (i + 1) + [2] * (j + 1)
+    return np.asarray(ops, np.uint8)

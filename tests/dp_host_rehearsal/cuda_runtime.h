@@ -1,0 +1,91 @@
+// Host stand-in for cuda_runtime.h, for rehearsing gsalign_tpu_torch/csrc/
+// dp.cu without a CUDA compiler or card: the source is compiled unchanged as
+// C++20 by g++ with this directory first on the include path. A launch
+// (cudaLaunchKernelEx) runs every CUDA thread of the grid as a std::thread;
+// warp shuffles and __syncwarp are exchanges through a per-warp array
+// between two std::barrier waits, __syncthreads a per-block barrier, the
+// cluster barrier one over the cluster's blocks, dynamic shared memory a
+// buffer a block. It checks arithmetic, indexing and the hand-over protocol
+// between warps (also across blocks of a cluster); it says nothing of what
+// nvcc accepts or of speed. Keep problems small: a thread a CUDA thread.
+#pragma once
+#include <algorithm>
+#include <atomic>
+#include <barrier>
+#include <cstdint>
+#include <cstdlib>
+#include <cstring>
+#include <memory>
+#include <thread>
+#include <vector>
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __align__(n)
+using std::max;
+using std::min;
+struct dim3 { unsigned x = 1, y = 1, z = 1; dim3() {} dim3(unsigned a) : x(a) {} };
+struct uint4 { uint32_t x, y, z, w; };
+inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) { return uint4{a, b, c, d}; }
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+constexpr int cudaSuccess = 0, cudaErrorInvalidValue = 1;
+constexpr int cudaFuncAttributeMaxDynamicSharedMemorySize = 8;
+enum { cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchAttribute { int id; struct { struct { unsigned x, y, z; } clusterDim; } val; };
+struct cudaLaunchConfig_t { dim3 gridDim, blockDim; size_t dynamicSmemBytes; cudaStream_t stream; cudaLaunchAttribute* attrs; unsigned numAttrs; };
+template <class K> cudaError_t cudaFuncSetAttribute(K, int, int) { return 0; }
+inline cudaError_t cudaGetLastError() { return 0; }
+
+struct ShimWarp { std::barrier<> bar{32}; int slot[32]; };
+struct ShimBlock { std::unique_ptr<std::barrier<>> bar; uint8_t* smem; std::vector<ShimWarp> warps; };
+struct ShimCluster { std::unique_ptr<std::barrier<>> bar; std::vector<ShimBlock*> blocks; };
+inline thread_local dim3 threadIdx, blockIdx, blockDim;
+inline thread_local ShimWarp* shim_warp;
+inline thread_local ShimBlock* shim_block;
+inline thread_local ShimCluster* shim_cluster;
+
+inline void __syncwarp() { shim_warp->bar.arrive_and_wait(); }
+inline void __syncthreads() { shim_block->bar->arrive_and_wait(); }
+inline int __shfl_sync(unsigned, int v, int src) {
+  shim_warp->slot[threadIdx.x & 31] = v; shim_warp->bar.arrive_and_wait();
+  int r = shim_warp->slot[src & 31]; shim_warp->bar.arrive_and_wait(); return r; }
+inline int __shfl_up_sync(unsigned, int v, int d) {
+  int lane = threadIdx.x & 31;
+  shim_warp->slot[lane] = v; shim_warp->bar.arrive_and_wait();
+  int r = lane >= d ? shim_warp->slot[lane - d] : v; shim_warp->bar.arrive_and_wait(); return r; }
+inline int __vibmax_s32(int a, int b, bool* p) { *p = a >= b; return a >= b ? a : b; }
+inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) { uint64_t w = ((uint64_t)y << 32) | x; uint32_t r = 0; for (int i = 0; i < 4; ++i) { uint32_t sel = (s >> (4 * i)) & 0xf; uint32_t b = (w >> (8 * (sel & 7))) & 0xff; if (sel & 8) b = (b & 0x80) ? 0xff : 0; r |= b << (8 * i); } return r; }
+template <class T> inline T __ldcg(const T* p) { return *p; }
+inline void __nanosleep(unsigned) { std::this_thread::yield(); }
+
+template <class... Exp, class... Act>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(Exp...), Act&&... args) {
+  unsigned cs = 1;
+  for (unsigned i = 0; i < cfg->numAttrs; ++i)
+    if (cfg->attrs[i].id == cudaLaunchAttributeClusterDimension) cs = cfg->attrs[i].val.clusterDim.x;
+  const unsigned nb = cfg->gridDim.x, nt = cfg->blockDim.x;
+  std::vector<ShimBlock> blocks(nb);
+  std::vector<ShimCluster> clusters(nb / cs);
+  for (unsigned b = 0; b < nb; ++b) {
+    blocks[b].bar = std::make_unique<std::barrier<>>(nt);
+    blocks[b].smem = static_cast<uint8_t*>(std::aligned_alloc(128, (cfg->dynamicSmemBytes + 127) / 128 * 128 + 128));
+    std::memset(blocks[b].smem, 0xAB, cfg->dynamicSmemBytes);
+    blocks[b].warps = std::vector<ShimWarp>(nt / 32);
+  }
+  for (unsigned c = 0; c < nb / cs; ++c) {
+    clusters[c].bar = std::make_unique<std::barrier<>>(cs * nt);
+    for (unsigned r = 0; r < cs; ++r) clusters[c].blocks.push_back(&blocks[c * cs + r]);
+  }
+  std::vector<std::thread> th;
+  for (unsigned b = 0; b < nb; ++b)
+    for (unsigned t = 0; t < nt; ++t)
+      th.emplace_back([&, b, t] {
+        threadIdx.x = t; blockIdx.x = b; blockDim.x = nt;
+        shim_block = &blocks[b]; shim_warp = &blocks[b].warps[t / 32]; shim_cluster = &clusters[b / cs];
+        kernel(static_cast<Exp>(args)...);
+      });
+  for (auto& x : th) x.join();
+  for (auto& b : blocks) std::free(b.smem);
+  return 0;
+}

@@ -16,8 +16,8 @@ from gsalign_tpu_torch.ops import dp as tdp
 from gsalign_tpu_torch.ops import dp_cuda, gather, rank, seed_cuda, seeding
 # by module name: pytest puts tests/ on sys.path, and `tests.` would find
 # an installed package of that name first where one exists
-from dp_cases import (load_oracle, make_batch, max_abs_err, oracle_batch,
-                      oracle_rows)
+from dp_cases import (edge_batch, load_oracle, make_batch, max_abs_err,
+                      oracle_batch, oracle_rows)
 
 
 @pytest.fixture
@@ -52,16 +52,138 @@ def test_kernels_match_ksw2_oracle_on_card(card):
         assert oracle_rows(cases, fn(*args, 256).cpu().numpy()) == outs
 
 
+def on_card(card, host):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(card) for a in host]
+
+
+def plain_ops(args, L):
+    """The plain version on the card under the kernels' contract (lengths
+    clamped to [0, L])."""
+    q, t, ql, tl = args
+    return tdp.dp_align_batch(q, t, ql.clamp(0, L), tl.clamp(0, L),
+                              L).cpu().numpy()
+
+
 @pytest.mark.cuda
-def test_dp_any_keeps_state_in_global_memory_when_large(card, monkeypatch):
-    """Above STATE_SMEM_MAX_L the u/v/x/y rows move to a global scratch;
-    lowering the threshold exercises that path at a small width."""
-    monkeypatch.setattr(dp_cuda, "STATE_SMEM_MAX_L", 256)
-    L, B = 512, 8
-    args = [torch.from_numpy(a).to(card)
-            for a in make_batch(np.random.default_rng(9), L, B)]
-    want = tdp.dp_align_batch(*args, L).cpu().numpy()
+@pytest.mark.parametrize("L", [64, 256, 512])
+def test_kernels_take_edge_problems_on_card(card, L):
+    """Empty, one-base, full-width and over-long (clamped) problems."""
+    args = on_card(card, edge_batch(np.random.default_rng(L), L))
+    want = plain_ops(args, L)
+    kernels = [dp_cuda.dp_any] + ([dp_cuda.dp_small]
+                                  if L <= dp_cuda.SMALL_MAX_L else [])
+    for fn in kernels:
+        got = fn(*args, L).cpu().numpy()
+        assert max_abs_err(got, want) == 0
+        n = (got != tdp.OP_PAD).sum(axis=1)
+        # ops from column 0 without holes, then OP_PAD to the end
+        assert ((np.arange(2 * L)[None, :] < n[:, None])
+                == (got != tdp.OP_PAD)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [2, 4, 8])
+def test_every_rows_a_lane_on_card(card, monkeypatch, K):
+    """Each instance of the core (K rows a lane) through both kernels, with
+    a batch that is not a multiple of the warps a block."""
+    L, B = 64, 13
+    args = on_card(card, make_batch(np.random.default_rng(K), L, B))
+    want = plain_ops(args, L)
+    monkeypatch.setattr(dp_cuda, "small_plan", lambda L: (K, 4))
+    assert max_abs_err(dp_cuda.dp_small(*args, L).cpu().numpy(), want) == 0
+    L, B = 512, 5
+    args = on_card(card, make_batch(np.random.default_rng(K + 10), L, B))
+    want = plain_ops(args, L)
+    monkeypatch.setattr(dp_cuda, "any_plan",
+                        lambda B, L, n_sm: (K, L // (32 * K), 1))
     assert max_abs_err(dp_cuda.dp_any(*args, L).cpu().numpy(), want) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,wpb,cs", [(4, 1, 1), (2, 3, 1), (4, 1, 2)])
+def test_dp_any_runs_further_passes_when_the_chain_is_short(
+        card, monkeypatch, K, wpb, cs):
+    """A chain that covers fewer rows than the problem has runs two or more
+    passes, the last row of a pass kept in the global row buffer."""
+    L, B = 512, 6
+    assert cs * wpb * 32 * K * 2 <= L
+    monkeypatch.setattr(dp_cuda, "any_plan",
+                        lambda B, L, n_sm: (K, wpb, cs))
+    args = on_card(card, make_batch(np.random.default_rng(9), L, B))
+    assert max_abs_err(dp_cuda.dp_any(*args, L).cpu().numpy(),
+                       plain_ops(args, L)) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,B,K", [(512, 3, 2), (2048, 2, 4)])
+def test_dp_any_gives_equal_ops_for_every_cluster_size(card, monkeypatch, L,
+                                                       B, K):
+    """The chain spread over 1, 2 and 8 blocks of a cluster: the same ops."""
+    args = on_card(card, make_batch(np.random.default_rng(L + 2), L, B))
+    want = plain_ops(args, L)
+    outs = []
+    for cs in (1, 2, 8):
+        monkeypatch.setattr(dp_cuda, "any_plan",
+                            lambda B, L, n_sm: (K, L // (32 * K * cs),
+                                                 cs))
+        outs.append(dp_cuda.dp_any(*args, L).cpu().numpy())
+        assert max_abs_err(outs[-1], want) == 0
+    assert np.array_equal(outs[0], outs[1])
+    assert np.array_equal(outs[0], outs[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,plan", [(256, (4, 2, 1)), (512, (2, 2, 4)),
+                                    (512, (8, 1, 1))])
+def test_dp_any_scratch_decodes_to_the_plain_directions(card, monkeypatch, L,
+                                                        plan):
+    """The packed directions dp_any leaves in its scratch, read through
+    dir_word_index, are the plain forward pass's nibbles, cell for cell.
+    (dp_small's directions never leave shared memory; it shares the core.)"""
+    B = 3
+    kept = []
+    scratch = dp_cuda.any_scratch
+
+    def keep(*a):
+        kept.append(scratch(*a))
+        return kept[-1]
+    monkeypatch.setattr(dp_cuda, "any_scratch", keep)
+    monkeypatch.setattr(dp_cuda, "any_plan", lambda B, L, n_sm: plan)
+    host = make_batch(np.random.default_rng(L + 3), L, B)
+    args = on_card(card, host)
+    dp_cuda.dp_any(*args, L)
+    torch.cuda.synchronize()
+    words = kept[0][0].cpu().numpy().view(np.uint32).reshape(B, -1)
+    assert words.shape[1] * 4 == L * L // 2
+    nib = tdp._dp_forward(*args, L).cpu().numpy()       # [2L-1, B, L]
+    for b in range(B):
+        i, j = np.meshgrid(np.arange(host[3][b]), np.arange(host[2][b]),
+                           indexing="ij")
+        w, n = dp_cuda.dir_word_index(L, plan[0], i, j)
+        got = (words[b][w] >> (4 * n).astype(np.uint32)) & 15
+        np.testing.assert_array_equal(got, nib[i + j, b, i])
+
+
+@pytest.mark.cuda
+def test_wrappers_keep_the_shapes_they_launched(card):
+    L, B = 64, 5
+    args = on_card(card, make_batch(np.random.default_rng(4), L, B))
+    dp_cuda.dp_small(*args, L)
+    dp_cuda.dp_any(*args, L)
+    for fn in (dp_cuda.dp_small, dp_cuda.dp_any):
+        got = fn.shapes[-1]
+        assert got[0] == L and len(got) == 5
+        assert all(a is b for a, b in zip(got[1:], args))
+        assert len(fn.shapes) <= dp_cuda.KEPT_SHAPES
+
+
+@pytest.mark.cuda
+def test_dp_any_plans_for_the_card_it_runs_on(card):
+    n_sm = dp_cuda.sm_count(card)
+    assert n_sm == torch.cuda.get_device_properties(card).multi_processor_count
+    # a batch that fills the card keeps a block a problem
+    assert dp_cuda.any_plan(n_sm, 2048, n_sm)[2] == 1
+    assert dp_cuda.any_plan(1, 2048, n_sm)[2] == dp_cuda.MAX_CLUSTER
 
 
 @pytest.mark.cuda
