@@ -6,6 +6,7 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py            # everything below
     python3 chip_smoke.py dp         # phases 1 and 2 only (the DP kernels)
     python3 chip_smoke.py dp-sweep   # those, and the DP launch plans timed
+    python3 chip_smoke.py seed       # phases 1 and 6 (the seed kernels)
 
 Phases (each raises on failure; nothing is caught):
   1. the card (nvidia-smi name and power limit), the torch and CUDA
@@ -22,21 +23,26 @@ Phases (each raises on failure; nothing is caught):
      launched (and no seed_step), one [dp] line for each DP launch of that
      run and both DP kernels held against the plain version on each launch's
      own inputs (ops equal) and timed there; then the same align with
-     GSALIGN_SA_MODE=pallas, which launches the lock-step seed_step and
-     masked_gather (and no seed_scan);
+     GSALIGN_SA_MODE=pallas, which launches seed_lockstep once a scan round
+     (the lock-step scan with the slot compaction and the masked gather
+     inside it) and no other seed kernel, and must gather SA words;
   5. 12 Mb (yeast scale, make_pair(12_000_000)): align through the CLI in
      the xla and pallas SA modes and on an sa_intv=8 index built through
      the API (seed_scan and resolve_sa launched), each with the JAX
      package's counts and sha256 values;
   6. the seed-stage kernels against their plain torch versions on the
-     card: masked_gather on the 12 Mb sa_rows at K = 512; seed_scan at
-     4.6 Mb and 12 Mb (xla) and on the sa_intv=8 index (equal records,
-     lane state and iteration counts); the lock-step seed_step scan at
-     4.6 Mb against the same plain scan (xla), and as the pallas-mode
-     scan at 4.6 Mb and 12 Mb; resolve_sa on every rank the 12 Mb sampled run resolves,
-     against the full suffix array too;
-  7. the seed scan's device operations per scan (per iteration in pallas
-     mode), under torch.profiler.
+     card: the stand-alone masked_gather on the 12 Mb sa_rows at K = 512;
+     seed_scan at 4.6 Mb and 12 Mb (xla) and on the sa_intv=8 index (equal
+     records, lane state and iteration counts); seed_lockstep against the
+     host loop scan_lockstep(plain=True) on the first round's lanes, in xla
+     mode at 4.6 Mb and in pallas mode at 4.6 Mb and 12 Mb (equal lane
+     state, records, iterations, words gathered and stalls; lanes must
+     stall at 12 Mb), there also with the grid capped so that a warp owns
+     several lanes; seed_step (seed_lockstep for one iteration) against
+     seed_step_plain iteration by iteration; resolve_sa on every rank the
+     12 Mb sampled run resolves, against the full suffix array too;
+  7. the seed stage's device operations per scan in both SA modes, under
+     torch.profiler.
 Every align run sets the kernels' launch counts to 0 just before it and
 reads them just after. Each kernel's bound is the larger of its bytes over
 the card's memory rate and its operations over the card's integer rate,
@@ -393,6 +399,7 @@ def counters():
     return {"dp_small": dp_cuda.dp_small, "dp_any": dp_cuda.dp_any,
             "masked_gather": gather.masked_gather,
             "seed_scan": seed_cuda.seed_scan,
+            "seed_lockstep": seed_cuda.seed_lockstep,
             "seed_step": seed_cuda.seed_step,
             "resolve_sa": seed_cuda.resolve_sa}
 
@@ -414,10 +421,14 @@ def align_run(tag: str, d: str, idx: str, expect: dict, sa_mode=None,
               must_launch=(), must_not_launch=()) -> dict:
     """One align through the CLI on the card, with GSALIGN_SA_MODE set to
     sa_mode (unset for None). Launch counts start at 0 just before it and
-    are read just after. Checks the outputs against `expect`."""
+    are read just after, and with them seed_lockstep's counts of the SA
+    words it gathered and the lane-iterations it stalled. Checks the
+    outputs against `expect`; a pallas run must have gathered words."""
     fns = counters()
     for fn in fns.values():
         fn.launches = 0
+    lock = fns["seed_lockstep"]
+    lock.gathered = lock.stalled = 0
     for name in ("dp_small", "dp_any"):
         fns[name].shapes.clear()
     t0 = time.time()
@@ -445,7 +456,9 @@ def align_run(tag: str, d: str, idx: str, expect: dict, sa_mode=None,
     say(f"[{tag}] align wall {wall:.2f} s; stages {st.group(1)}")
     say(f"[{tag}] seed scan: {it.group(1)} lanes, iterations per round "
         f"[{it.group(2)}]")
-    say(f"[{tag}] kernel launches in the run: {launches}")
+    say(f"[{tag}] kernel launches in the run: {launches}; SA words "
+        f"gathered inside seed_lockstep {lock.gathered}, lane-iterations "
+        f"stalled {lock.stalled}")
     say(f"[{tag}] outputs {json.dumps(got)}")
     if got != expect:
         raise AssertionError(f"{tag} outputs differ from the JAX run: "
@@ -457,7 +470,14 @@ def align_run(tag: str, d: str, idx: str, expect: dict, sa_mode=None,
     extra = [k for k in must_not_launch if launches[k] != 0]
     if extra:
         raise AssertionError(f"{tag}: {extra} ran off its path: {launches}")
+    rounds = len(it.group(2).split(","))
+    if sa_mode == "pallas" and (launches["seed_lockstep"] != rounds
+                                or lock.gathered <= 0):
+        raise AssertionError(
+            f"{tag}: {launches['seed_lockstep']} seed_lockstep launches in "
+            f"{rounds} scan round(s), {lock.gathered} words gathered")
     return {"launches": launches, "wall": wall, "seed_s": seed_s,
+            "gathered": lock.gathered, "stalled": lock.stalled,
             "iterations": [int(x) for x in it.group(2).split(",")],
             "dp_shapes": [(name, shape) for name in ("dp_small", "dp_any")
                           for shape in fns[name].shapes]}
@@ -474,7 +494,8 @@ def phase_46mb() -> dict:
     runs = {"4.6mb": align_run(
         "4.6mb", d, f"{d}/idx", EXPECT_46,
         must_launch=("dp_small", "dp_any", "seed_scan"),
-        must_not_launch=("seed_step", "masked_gather", "resolve_sa"))}
+        must_not_launch=("seed_lockstep", "seed_step", "masked_gather",
+                         "resolve_sa"))}
     main = runs["4.6mb"]
     if len(main["dp_shapes"]) != main["launches"]["dp_small"] \
             + main["launches"]["dp_any"]:
@@ -483,16 +504,25 @@ def phase_46mb() -> dict:
     main["dp_errs"] = phase_main_shapes(main.pop("dp_shapes"))
     runs["4.6mb-pallas"] = align_run(
         "4.6mb-pallas", d, f"{d}/idx", EXPECT_46, sa_mode="pallas",
-        must_launch=("dp_small", "dp_any", "seed_step", "masked_gather"),
-        must_not_launch=("seed_scan", "resolve_sa"))
+        must_launch=("dp_small", "dp_any", "seed_lockstep"),
+        must_not_launch=("seed_scan", "seed_step", "masked_gather",
+                         "resolve_sa"))
     return runs
 
 
-def phase_12mb() -> dict:
+def sampled_index(d: str):
+    """An sa_intv=8 index of d/ref.fa at d/idx8, built through the API:
+    every-8th SA sampling is what build_fmindex picks above 640 M text
+    rows; here it is asked for at 24 M rows."""
     from gsalign_tpu_torch.genome.fasta import read_fasta
     from gsalign_tpu_torch.genome.packing import pack_genome
     from gsalign_tpu_torch.index.fmindex import build_fmindex
     from gsalign_tpu_torch.index.io import save_index
+    fm8 = build_fmindex(pack_genome(read_fasta(f"{d}/ref.fa")), sa_intv=8)
+    save_index(fm8, f"{d}/idx8")
+
+
+def phase_12mb() -> dict:
     t0 = time.time()
     d = make_data("12mb", 12_000_000)
     say(f"[12mb] data generated in {time.time() - t0:.1f} s")
@@ -500,24 +530,24 @@ def phase_12mb() -> dict:
     run_cli("index", f"{d}/ref.fa", f"{d}/idx")
     say(f"[12mb] index build {time.time() - t0:.2f} s")
     t0 = time.time()
-    # every-8th SA sampling is what build_fmindex picks above 640 M text
-    # rows; here it is asked for at 24 M rows
-    fm8 = build_fmindex(pack_genome(read_fasta(f"{d}/ref.fa")), sa_intv=8)
-    save_index(fm8, f"{d}/idx8")
+    sampled_index(d)
     say(f"[12mb] sa_intv=8 index build {time.time() - t0:.2f} s")
     return {
         "12mb": align_run(
             "12mb", d, f"{d}/idx", EXPECT_12,
             must_launch=("dp_small", "seed_scan"),
-            must_not_launch=("seed_step", "masked_gather", "resolve_sa")),
+            must_not_launch=("seed_lockstep", "seed_step", "masked_gather",
+                             "resolve_sa")),
         "12mb-pallas": align_run(
             "12mb-pallas", d, f"{d}/idx", EXPECT_12, sa_mode="pallas",
-            must_launch=("dp_small", "seed_step", "masked_gather"),
-            must_not_launch=("seed_scan", "resolve_sa")),
+            must_launch=("dp_small", "seed_lockstep"),
+            must_not_launch=("seed_scan", "seed_step", "masked_gather",
+                             "resolve_sa")),
         "12mb-sa8": align_run(
             "12mb-sa8", d, f"{d}/idx8", EXPECT_12,
             must_launch=("dp_small", "seed_scan", "resolve_sa"),
-            must_not_launch=("seed_step", "masked_gather")),
+            must_not_launch=("seed_lockstep", "seed_step",
+                             "masked_gather")),
     }
 
 
@@ -648,11 +678,11 @@ def scan_work(dfm, q_rows, starts, stops, prm) -> dict:
             "direct_steps": direct_steps, "init_steps": init_steps}
 
 
-def scan_check(tag: str, dfm, queries, lockstep: bool) -> dict:
-    """seed_scan (and with lockstep the lock-step seed_step scan) against
-    the plain scan on the first round's lanes of `queries`: records and
-    lane state must be equal. Returns {kernel: {ms, plain_ms, max_abs_err,
-    bound_ms, bound_by}}."""
+def scan_check(tag: str, dfm, queries):
+    """seed_scan against the plain scan on the first round's lanes of
+    `queries`: records and lane state must be equal. Returns ({ms,
+    plain_ms, max_abs_err, bound_ms, bound_by}, the round's scan_lanes
+    arguments (q_rows, starts, stops, prm), the plain scan's lanes)."""
     import torch
     from gsalign_tpu_torch.ops import seed_cuda, seeding
     rounds = []
@@ -701,34 +731,158 @@ def scan_check(tag: str, dfm, queries, lockstep: bool) -> dict:
         f"bound {bnd['bound_ms']:.5f} ms ({bnd['bound_by']}: "
         f"{work['n_bytes']} bytes, {work['table_bytes']} of them distinct "
         f"table rows; {work['n_ops']} operations)  equal")
-    out = {"seed_scan": {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
-                         **bnd}}
-    if lockstep:
-        l_lanes = fresh()
-        n_iter, l_ms = timed(lambda: seeding.scan_lockstep(
-            dfm, q_rows, l_lanes, prm, plain=False))
-        l_st = l_lanes.st.cpu().numpy()
-        l_err = err_of(l_lanes, l_st, p_lanes, p_st)
-        if l_err or n_iter != int(steps.max()):
-            raise AssertionError(f"seed_step {tag}: the lock-step scan "
-                                 f"differs from the plain scan (max |diff| "
-                                 f"{l_err}, {n_iter} iterations)")
-        # the same function on the same lanes, so the same bound: the
-        # state that each launch reads and writes back is the lock step's
-        # own traffic, not work the scan needs
-        say(f"[kernel] seed_step lock-step scan {tag} {prm.sa_mode}: "
-            f"{n_iter} iterations (launches); kernel scan {l_ms:.1f} ms  "
-            f"plain {plain_ms:.1f} ms  bound {bnd['bound_ms']:.5f} ms "
-            f"({bnd['bound_by']}, the scan's)  equal")
-        out["seed_step"] = {"ms": l_ms, "plain_ms": plain_ms,
-                            "max_abs_err": l_err, **bnd}
-    return out
+    return ({"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, **bnd},
+            (q_rows, starts, stops, prm), p_lanes)
+
+
+def lockstep_check(tag: str, dfm, case, sa_mode: str, bnd: dict,
+                   plain=None, max_blocks=None, need_stalls=False):
+    """seed_lockstep in `sa_mode` against the host loop
+    scan_lockstep(plain=True) on the lanes of `case` (scan_lanes' arguments):
+    lane state, counters (iterations, live, words gathered, stalls) and
+    records must be equal. `plain` is (lanes, ms) of a plain scan already
+    run in this mode. `bnd` is the scan's bound (scan_work): the same lanes
+    take the same steps in every mode, a stall needs no work, and the fused
+    gather's words are the SA words that scan_work counts. Times: the launch
+    alone, 5 launches on fresh lanes queued behind the spin kernel
+    (cuda_ms), and one wrapper call with its read-back. Returns ({ms,
+    plain_ms, max_abs_err, bound_ms, bound_by}, counters, (lanes, ms) of the
+    plain scan, the call's ms)."""
+    import dataclasses
+    import torch
+    from gsalign_tpu_torch.ops import cuda_build, seed_cuda, seeding
+    q_rows, starts, stops, prm = case
+    prm = dataclasses.replace(prm, sa_mode=sa_mode)
+    dev = q_rows.device
+
+    def fresh():
+        return seeding.ScanLanes.start(starts, stops, prm.max_out, dev)
+    if plain is None:
+        p_lanes = fresh()
+        plain = (p_lanes, timed(lambda: seeding.scan_lockstep(
+            dfm, q_rows, p_lanes, prm, plain=True))[1])
+    p_lanes, plain_ms = plain
+    lanes = fresh()
+    _, c = seed_cuda.seed_lockstep(dfm, q_rows, lanes, prm,
+                                   max_blocks=max_blocks)
+    err = max(int((lanes.buf - p_lanes.buf).abs().max()),
+              int((lanes.out - p_lanes.out).abs().max()))
+    if err:
+        raise AssertionError(
+            f"seed_lockstep {tag} {sa_mode}: lane state, counters or records "
+            f"differ from the plain lock-step scan (max |diff| {err}; "
+            f"counters {c.tolist()} against {p_lanes.counters.tolist()})")
+    n_iter, _, gathered, stalled = c.tolist()
+    if need_stalls and stalled <= 0:
+        raise AssertionError(f"seed_lockstep {tag}: no lane stalled, so the "
+                             f"case does not test the slots")
+    lib = seed_cuda.build()
+    plan = seed_cuda.lockstep_plan(
+        len(starts), seed_cuda.resident_blocks(
+            lib, seed_cuda._win_words(lanes.max_len)),
+        seed_cuda.resident_blocks(lib, -1), max_blocks)
+    batch = [fresh() for _ in range(5)]
+    todo = iter(batch)
+    ms = cuda_ms(lambda: seed_cuda.launch_lockstep(
+        lib, cuda_build.stream(dev), dfm, q_rows, next(todo), prm, 0,
+        max_blocks), 5)
+    if not all(torch.equal(x.buf, p_lanes.buf) for x in batch):
+        raise AssertionError(f"seed_lockstep {tag} {sa_mode}: a timed launch "
+                             f"differs from the plain scan")
+    again = fresh()
+    call_ms = timed(lambda: seed_cuda.seed_lockstep(
+        dfm, q_rows, again, prm, max_blocks=max_blocks))[1]
+    fused = bound(4 * gathered, gathered)
+    say(f"[kernel] seed_lockstep {tag} {sa_mode}: {len(starts)} lanes in "
+        f"{plan[0]} blocks, {plan[1]} lane(s) a warp, window "
+        f"{'staged' if plan[2] else 'in q_rows'}"
+        f"{f' (grid capped at {max_blocks} blocks)' if max_blocks else ''}; "
+        f"{n_iter} iterations, {gathered} SA words gathered in the scan "
+        f"(their bytes alone: bound {fused['bound_ms']:.7f} ms), {stalled} "
+        f"lane-iterations stalled; kernel {ms:.3f} ms "
+        f"({1e3 * ms / max(1, n_iter):.2f} us an iteration; the call with "
+        f"its read-back {call_ms:.3f} ms)  plain {plain_ms:.1f} ms  bound "
+        f"{bnd['bound_ms']:.5f} ms ({bnd['bound_by']}, the scan's)  equal")
+    return ({"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+             "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"]},
+            c, plain, call_ms)
+
+
+def barrier_cost(tag: str, dfm, case, plain_lanes, reps: int = 5):
+    """What seed_lockstep's grid barrier and counts cost an iteration, apart
+    from lanes waiting for each other: the lanes of `case` with every lane
+    but the longest emptied (its block and warp still arrive at every
+    barrier), through seed_lockstep and through seed_scan, which runs the
+    same steps of that one lane with no barrier; both as calls with their
+    read-back, in turns."""
+    from gsalign_tpu_torch.ops import seed_cuda, seeding
+    q_rows, starts, stops, prm = case
+    steps = plain_lanes.st[seeding.F_STEPS].cpu().numpy()
+    lone = int(np.argmax(steps))
+    stops1 = starts.copy()
+    stops1[lone] = stops[lone]
+    ms = {"seed_lockstep": 0.0, "seed_scan": 0.0}
+    for _ in range(reps):
+        got = {}
+        for name in ms:
+            lanes = seeding.ScanLanes.start(starts, stops1, prm.max_out,
+                                            q_rows.device)
+            res, t = timed(lambda: getattr(seed_cuda, name)(
+                dfm, q_rows, lanes, prm))
+            ms[name] += t / reps
+            got[name] = res[0] if name == "seed_lockstep" else res
+        if not np.array_equal(got["seed_lockstep"], got["seed_scan"]) \
+                or got["seed_scan"][seeding.F_STEPS].max() != steps[lone]:
+            raise AssertionError(f"barrier_cost {tag}: the lone lane's scans "
+                                 f"differ")
+    say(f"[kernel] seed_lockstep {tag} with one live lane of {len(starts)} "
+        f"({steps[lone]} iterations): {ms['seed_lockstep']:.3f} ms against "
+        f"seed_scan's {ms['seed_scan']:.3f} ms on the same lane: the grid "
+        f"barrier and the counts cost "
+        f"{1e3 * (ms['seed_lockstep'] - ms['seed_scan']) / steps[lone]:.2f} "
+        f"us an iteration")
+
+
+def seed_step_check(tag: str, dfm, case, n_iters: int = 64):
+    """seed_step (seed_lockstep for one iteration, its slots and gather
+    inside) against _sa_slots, masked_gather_plain and seed_step_plain,
+    iteration by iteration in pallas mode: live count, lane state and
+    records equal after each. Returns its mean milliseconds a call."""
+    import dataclasses
+    import torch
+    from gsalign_tpu_torch.ops import gather, seed_cuda, seeding
+    q_rows, starts, stops, prm = case
+    prm = dataclasses.replace(prm, sa_mode="pallas")
+    k_lanes, p_lanes = (seeding.ScanLanes.start(starts, stops, prm.max_out,
+                                                q_rows.device)
+                        for _ in range(2))
+    K = min(seeding._SA_GATHER_K, len(starts))
+    n0, total = seed_cuda.seed_step.launches, 0.0
+    for i in range(n_iters):
+        live, ms = timed(lambda: seed_cuda.seed_step(dfm, q_rows, k_lanes,
+                                                     prm))
+        total += ms
+        slot, res_k = seeding._sa_slots(dfm, p_lanes, K,
+                                        gather.masked_gather_plain)
+        p_live = int(seeding.seed_step_plain(dfm, q_rows, p_lanes, prm, slot,
+                                             res_k))
+        if live != p_live or not torch.equal(k_lanes.st, p_lanes.st) \
+                or not torch.equal(k_lanes.out, p_lanes.out):
+            raise AssertionError(f"seed_step {tag}: iteration {i} differs "
+                                 f"from seed_step_plain (live {live} "
+                                 f"against {p_live})")
+    if seed_cuda.seed_step.launches - n0 != n_iters:
+        raise AssertionError("seed_step: a call made no launch")
+    say(f"[kernel] seed_step {tag} pallas: {n_iters} iterations, one launch "
+        f"each, equal to seed_step_plain after every one; "
+        f"{total / n_iters:.3f} ms a call with its read-back")
+    return total / n_iters
 
 
 def phase_seed_kernels() -> dict:
-    """masked_gather, seed_scan, seed_step and resolve_sa against their
-    plain torch versions on the card. Returns per-kernel {ms, plain_ms,
-    max_abs_err, bound_ms, bound_by}."""
+    """masked_gather, seed_scan, seed_lockstep (as which seed_step is
+    listed) and resolve_sa against their plain torch versions on the card.
+    Returns per-kernel {ms, plain_ms, max_abs_err, bound_ms, bound_by}."""
     import torch
     from gsalign_tpu_torch.ops import gather, rank, seed_cuda, seeding
     totals = {}
@@ -757,37 +911,40 @@ def phase_seed_kernels() -> dict:
                                "max_abs_err": err, **bnd}
 
     # seed_scan against its plain version (the lock-step plain scan) at
-    # 4.6 Mb and 12 Mb (xla) and on the sampled index (none); at 4.6 Mb
-    # also the lock-step seed_step scan against the same plain scan
+    # 4.6 Mb and 12 Mb (xla) and on the sampled index (none)
     dfm46, q46 = load_case("4.6mb", "idx")
     dfm8, q8 = load_case("12mb", "idx8")
-    for tag, dfm, queries in (("4.6mb", dfm46, q46), ("12mb", dfm12, q12),
-                              ("12mb-sa8", dfm8, q8)):
-        res = scan_check(tag, dfm, queries, lockstep=tag == "4.6mb")
-        if tag == "4.6mb":            # the main path's shapes
-            totals.update(res)
+    scans = {tag: scan_check(tag, dfm, queries)
+             for tag, dfm, queries in (("4.6mb", dfm46, q46),
+                                       ("12mb", dfm12, q12),
+                                       ("12mb-sa8", dfm8, q8))}
+    totals["seed_scan"] = scans["4.6mb"][0]       # the main path's shapes
 
-    # pallas mode: the lock-step kernels against the plain scan, as whole
-    # scans; at 12 Mb 1,200 lanes contend for the K slots (stall and retry)
-    for tag, dfm, queries in (("4.6mb", dfm46, q46), ("12mb", dfm12, q12)):
-        runs = {}
-        for plain in (True, False):
-            stats = {}
-            with sa_mode_env("pallas"):
-                seeds, ms = timed(lambda: seeding.find_seeds_all(
-                    dfm, queries, plain=plain, stats=stats))
-            runs[plain] = (seeds, stats, ms)
-        (ps, pst, pms), (ks, kst, kms) = runs[True], runs[False]
-        same = all(np.array_equal(x, y) for a, b in zip(ks, ps)
-                   for x, y in zip(a, b))
-        if not same or kst != pst:
-            raise AssertionError(f"seed_step {tag} pallas: the kernel scan "
-                                 f"differs from the plain one ({kst} "
-                                 f"against {pst})")
-        say(f"[kernel] seed_step scan {tag} pallas: "
-            f"{sum(len(c[0]) for c in ks)} seeds, iterations "
-            f"{kst['scan_iterations']} (plain {pst['scan_iterations']}), "
-            f"kernel {kms:.1f} ms  plain {pms:.1f} ms  equal")
+    # seed_lockstep against the host loop of the plain step: in xla mode at
+    # 4.6 Mb against the plain scan that seed_scan was held against; in
+    # pallas mode at 4.6 Mb and at 12 Mb, where 1,200 lanes contend for the
+    # K slots (stall and retry), there also with several lanes a warp
+    res, case46, plain46 = scans["4.6mb"]
+    _, c, _, call_ms = lockstep_check("4.6mb", dfm46, case46, "xla", res,
+                                      plain=(plain46, res["plain_ms"]))
+    say(f"[kernel] the lock step at 4.6mb xla costs "
+        f"{1e3 * (call_ms - res['ms']) / c[0]:.2f} us an iteration over "
+        f"seed_scan (both as calls with their read-back): the grid barrier, "
+        f"the counts, and every lane waiting for the slowest step")
+    totals["seed_step"], c46 = lockstep_check("4.6mb", dfm46, case46,
+                                              "pallas", res)[:2]
+    res, case12, _ = scans["12mb"]
+    _, c12, plain12, _ = lockstep_check("12mb", dfm12, case12, "pallas", res,
+                                        need_stalls=True)
+    lockstep_check("12mb", dfm12, case12, "pallas", res, plain=plain12,
+                   max_blocks=64, need_stalls=True)
+    for tag, c_, expect in (("4.6mb", c46, 737), ("12mb", c12, 862)):
+        if c_[0] != expect:
+            raise AssertionError(f"seed_lockstep {tag} pallas: {c_[0]} "
+                                 f"iterations, the JAX package's scan takes "
+                                 f"{expect}")
+    seed_step_check("4.6mb", dfm46, case46)
+    barrier_cost("4.6mb", dfm46, case46, plain46)
 
     # resolve_sa: every rank the 12 Mb sampled run resolves
     captured = []
@@ -837,8 +994,7 @@ def phase_seed_kernels() -> dict:
 
 def phase_profile():
     """Device operations (kernels, copies and sets) of the seed stage under
-    torch.profiler at 4.6 Mb: per scan in xla mode, per iteration of the
-    lock-step loop in pallas mode."""
+    torch.profiler at 4.6 Mb, per scan, in both SA modes."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -862,13 +1018,11 @@ def phase_profile():
         for e in dev:
             n, us = names.get(e.name, (0, 0.0))
             names[e.name] = (n + 1, us + e.time_range.elapsed_us())
-        per = (f"{len(dev) / max(1, n_iter):.2f} per iteration"
-               if mode == "pallas" else
-               f"{len(dev) / max(1, n_scan):.1f} per scan, query rows and "
-               f"hit expansion included")
         say(f"[profile] seed stage 4.6mb {mode}: {len(dev)} device "
             f"operations over {n_scan} scan(s) of {n_iter} iterations "
-            f"({per}); device busy {busy:.4f} s of {wall:.3f} s traced wall")
+            f"({len(dev) / max(1, n_scan):.1f} per scan, query rows and hit "
+            f"expansion included); device busy {busy:.4f} s of {wall:.3f} s "
+            f"traced wall")
         for name, (n, us) in sorted(names.items(), key=lambda kv: -kv[1][1]
                                     )[:8]:
             say(f"[profile]   {n:6d} x {us / n:8.2f} us  {name[:90]}")
@@ -953,6 +1107,19 @@ def main() -> int:
         if sys.argv[1] == "dp-sweep":
             phase_sweep()
         return 0
+    if sys.argv[1:] == ["seed"]:
+        # the seed-stage kernels alone: build, the 4.6 Mb and 12 Mb data
+        # and indexes, kernel against plain. No result lines.
+        try:
+            phase_card()
+            for tag, n in (("4.6mb", 4_600_000), ("12mb", 12_000_000)):
+                run_cli("index", f"{make_data(tag, n)}/ref.fa",
+                        f"{WORK}/{tag}/idx")
+            sampled_index(f"{WORK}/12mb")
+            phase_seed_kernels()
+        finally:
+            shutil.rmtree(WORK, ignore_errors=True)
+        return 0
     try:
         phase_card()
         totals = phase_kernels()
@@ -971,24 +1138,35 @@ def main() -> int:
         f"{tag}: wall {r['wall']:.2f} s, seed {r['seed_s']:.2f} s, "
         f"iterations {r['iterations']}" for tag, r in runs.items()))
 
-    def entry(name, source, replaces, launches):
+    def entry(name, source, replaces, launches, **more):
         # no single PyTorch call computes any of these functions
         return {"name": name, "route": "cuda",
                 "source": f"gsalign_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, **totals[name],
-                "library_ms": None}
+                "library_ms": None, **more}
+    pallas = runs["4.6mb-pallas"]
     kernels = [
         entry("dp_small", "dp.cu", "gsalign_tpu/ops/dp_pallas.py:80",
               main_path["dp_small"]),
         entry("dp_any", "dp.cu", "gsalign_tpu/ops/dp_pallas.py:457",
               main_path["dp_any"]),
+        # the masked gather runs inside seed_lockstep (gather_dev.cuh): its
+        # launches on the pallas path are that kernel's; the stand-alone
+        # kernel, which the times here are of, is launched by the
+        # comparisons only
         entry("masked_gather", "gather.cu",
               "gsalign_tpu/ops/gather_pallas.py:34",
-              runs["4.6mb-pallas"]["launches"]["masked_gather"]),
+              pallas["launches"]["seed_lockstep"],
+              fused_into="seed_lockstep",
+              words_gathered=pallas["gathered"],
+              standalone_launches=pallas["launches"]["masked_gather"]),
         entry("seed_scan", "seed.cu", "gsalign_tpu/ops/seeding.py:150",
               main_path["seed_scan"]),
+        # the loop body's kernel is seed_lockstep, counted by its own
+        # wrapper (seed_step is that kernel for one iteration)
         entry("seed_step", "seed.cu", "gsalign_tpu/ops/seeding.py:221",
-              runs["4.6mb-pallas"]["launches"]["seed_step"]),
+              pallas["launches"]["seed_lockstep"], kernel="seed_lockstep",
+              lanes_stalled=pallas["stalled"]),
         entry("resolve_sa", "seed.cu", "gsalign_tpu/ops/rank.py:625",
               runs["12mb-sa8"]["launches"]["resolve_sa"]),
     ]

@@ -5,7 +5,11 @@
 // (_kernel, called by masked_row_gather): out[i] = table[idx[i]] where
 // idx[i] >= 0, else 0. The seed scan's `pallas` SA mode uses it to read the
 // suffix-array words of the lanes that enter direct extension in one
-// iteration, compacted into K slots.
+// iteration, compacted into K slots. Since the lock-step scan became one
+// kernel (csrc/seed.cu, seed_lockstep) that read happens inside it, through
+// the same masked_word of gather_dev.cuh; this stand-alone kernel remains
+// the port of the Pallas kernel for a caller that has its indices in a
+// tensor.
 //
 // The TPU kernel DMAs the whole aligned 1024-word block around each wanted
 // word into VMEM and picks the word with a one-hot select, because Mosaic
@@ -20,6 +24,8 @@
 
 #include <cuda_runtime.h>
 
+#include "gather_dev.cuh"
+
 namespace {
 
 __global__ void masked_gather_kernel(const int32_t* __restrict__ table,
@@ -27,8 +33,7 @@ __global__ void masked_gather_kernel(const int32_t* __restrict__ table,
                                      int32_t* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= K) return;
-  const int32_t ix = idx[i];
-  out[i] = ix >= 0 ? table[ix] : 0;
+  out[i] = gatherdev::masked_word(table, idx[i]);
 }
 
 }  // namespace

@@ -8,19 +8,28 @@
 //                  per lane. Serves the "xla" and "none" SA modes, where a
 //                  lane's trajectory depends on its own state and the
 //                  read-only tables alone.
-//   seed_step   <- one iteration of that loop's body over all lanes, one
-//                  thread per lane, driven by a host loop. "pallas" SA mode
-//                  needs it (its K slots couple the lanes); in the other
-//                  modes it is the lane-by-lane diffing tool.
+//   seed_lockstep <- the same loop taken iteration by iteration: every
+//                  lane takes one step an iteration, in lock step, and the
+//                  loop itself runs on the card, a warp per lane and one
+//                  grid barrier an iteration. "pallas" SA mode needs the
+//                  lock step: its K compaction slots couple the lanes
+//                  (_seed_scan_impl under sa_mode="pallas", with the Pallas
+//                  kernel gather_pallas._kernel for the slots' reads). The
+//                  slots are made here by a prefix sum over the lanes in lane
+//                  order and each lane reads its own slot's SA word
+//                  (gather_dev.cuh). With max_iters = 1 it is seed_step, one
+//                  iteration of the loop's body; in the other modes it is
+//                  the lane-by-lane diffing tool.
 //   resolve_sa  <- gsalign_tpu/ops/rank.py resolve_sa (with lf_t3), the
 //                  LF walk of sampled-SA indexes, an XLA while_loop on the
 //                  TPU. One thread per rank, walking to its sampled row.
 //
 // Each is held against its plain torch version: seed_scan against
-// ops/seeding.seed_scan_plain, seed_step against ops/seeding.seed_step_plain,
-// resolve_sa against ops/rank.resolve_sa. seed_scan and seed_step run the
-// SAME step function (lane_step below) over two memory policies, so they
-// cannot drift apart. The word tables (q_rows, t3, t3_major, text_rows) are
+// ops/seeding.seed_scan_plain, seed_lockstep against the host loop
+// ops/seeding.scan_lockstep (one seed_step_plain an iteration), resolve_sa
+// against ops/rank.resolve_sa. seed_scan and seed_lockstep run the SAME step
+// function (lane_step below) over the same memory policy, so they cannot
+// drift apart. The word tables (q_rows, t3, t3_major, text_rows) are
 // the port's int32 tensors, read here as the 32-bit words they hold.
 //
 // What bounds the scan on this card: neither bytes nor operations but the
@@ -47,6 +56,21 @@
 //     comb_pairs on an INIT jump) and for nothing else in device memory;
 //   - the lane's state lives in registers, uniform across its warp, and
 //     thread 0 writes the records.
+// What seed_lockstep adds, where the lanes must stay in step:
+//   - the host leaves the loop: the slot compaction, the gather and the
+//     count of live lanes, which cost the host loop two launches, some
+//     twenty tensor operations and a synchronising read-back an iteration,
+//     are a few instructions around one grid barrier;
+//   - slots in lane order without atomics: a block publishes how many of
+//     its lanes need an SA word (and how many are live) to a buffer picked
+//     by the iteration's parity; after the barrier every warp sums the
+//     blocks before its own (one coalesced read, one warp reduction) and the
+//     warps before it in its block. The order is the result: which lanes
+//     stall, and so the iteration count, equal the host loop's;
+//   - the grid is launched cooperatively, so all of it is resident. Where
+//     the lanes outnumber the warps the card holds at once, a warp owns a
+//     run of consecutive lanes and steps each once an iteration, with their
+//     state in the state tensor and query words read from q_rows.
 // An LF-walk step of resolve_sa is two dependent reads (a t3 row, then its
 // major row), up to sa_intv - 1 steps on average.
 //
@@ -57,6 +81,9 @@
 #include <cstdint>
 
 #include <cuda_runtime.h>
+
+#include "gather_dev.cuh"
+#include "seed_dev.cuh"
 
 typedef long long i64;
 typedef unsigned int u32;
@@ -79,13 +106,17 @@ struct SeedArgs {
   const i64* stops;        // [B]
   i64* state;              // [12, B]
   i64* out;                // [B, max_out, 3]
-  const i64* slot;         // [B] (seed_step, pallas mode)
-  const int32_t* res_k;    // [K] (seed_step, pallas mode)
-  int32_t* live;           // [2] (seed_step)
+  // seed_lockstep: [2, blocks] need | live << 32 of each block, by the
+  // iteration's parity, then the grid barrier's word (zero at launch)
+  u64* block_counts;
+  u64* counters;           // [4] (seed_lockstep), as ops/seeding.C_*
   i64 B, max_out, min_seed_length, max_seed_freq, sensitive, order;
   i64 use_init, use8, seq_len, n_look, mode;
-  i64 it;                  // seed_step: the iteration, for the live counter
-  i64 win_words, step_cap; // seed_scan: staged words per plane; step limit
+  i64 win_words, step_cap; // staged words per plane; step (iteration) limit
+  // seed_lockstep: compaction slots; iterations to run (0: to the end);
+  // grid blocks; consecutive lanes a warp (1: state in registers and the
+  // query window staged in shared memory)
+  i64 gather_k, max_iters, blocks, lanes_per_warp;
 };
 
 // Must match ops/seed_cuda._ResolveArgs field for field.
@@ -111,9 +142,16 @@ constexpr i64 kInitOff = 65536 + 136;   // ops/rank.INIT_OFF
 constexpr int kModeNone = 0, kModePallas = 2;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kScanWarps = 4;           // lanes (warps) per seed_scan block
-// seed_scan's shared 64-bit words before the query windows: the comb_pairs
-// class rows, init_corr, t3_exc_pos, t3_exc_chr
+// warps per seed_lockstep block: the grid barrier costs more the more blocks
+// arrive at it, so its blocks are large (one block an SM)
+constexpr int kLockWarps = 16;
+// the scans' shared 64-bit words before the query windows: the comb_pairs
+// class rows, init_corr, t3_exc_pos, t3_exc_chr; seed_lockstep adds its
+// warps' counts, one word a warp for each parity of the iteration
 constexpr int kScanHead = 136 + 12 + 3 + 3;
+constexpr int kLockHead = kScanHead + 2 * kLockWarps;
+// rows of seed_lockstep's counters, as ops/seeding.C_*
+enum { C_ITERS, C_LIVE, C_GATHERED, C_STALLED };
 
 // rows of the lane-state tensor, as ops/seeding.F_*
 enum {
@@ -243,43 +281,10 @@ __device__ __forceinline__ u32 mismatch_mask(u32 tw, u32 qw, u32 aw) {
   return ((x | (x >> 1)) & 0x55555555u) | aw;
 }
 
-// ---- memory policy of seed_step: one thread, everything from device
-// memory ----
-struct ThreadMem {
-  const SeedArgs& a;
-  __device__ __forceinline__ bool writer() const { return true; }
-  __device__ __forceinline__ u32 qword(int plane, i64 look, int j) const {
-    return word_at(a.q_rows + (look >> 8) * 64 + plane * 32,
-                   static_cast<int>(look & 255), j);
-  }
-  __device__ __forceinline__ u64 comb(i64 row) const {
-    return static_cast<u64>(a.comb_pairs[row]);
-  }
-  __device__ __forceinline__ int corr_n(i64 cls_init) const {
-    int n = 0;
-    for (int i = 0; i < 12; ++i) n += a.init_corr[i] == cls_init;
-    return n;
-  }
-  __device__ __forceinline__ void occ_pair(i64 ka, i64 kb, bool triple,
-                                           int cls, i64& tk, i64& tl) const {
-    tk = occ_t3(a.t3, a.t3_major, a.t3_exc_pos, a.t3_exc_chr, ka, triple, cls);
-    tl = occ_t3(a.t3, a.t3_major, a.t3_exc_pos, a.t3_exc_chr, kb, triple, cls);
-  }
-  // first mismatch of the 256 text bases at field toff of trow against the
-  // query at `look`; 256 if none
-  __device__ __forceinline__ int run256(const u32* trow, int toff,
-                                        i64 look) const {
-    for (int j = 0; j < 16; ++j) {
-      const u32 mm = mismatch_mask(word_at(trow, toff, j), qword(0, look, j),
-                                   qword(1, look, j));
-      if (mm != 0) return 16 * j + (__clz(mm) >> 1);
-    }
-    return 256;
-  }
-};
-
-// ---- memory policy of seed_scan: a warp, the query window and the small
-// tables in shared memory, rank rows and text rows by coalesced loads ----
+// ---- the scans' memory policy: a warp, the small tables in shared
+// memory, rank rows and text rows by coalesced loads; the lane's query
+// window in shared memory too (kStaged) or read from q_rows ----
+template <bool kStaged>
 struct WarpMem {
   const SeedArgs& a;
   const u64* comb_tail;    // shared: comb_pairs[kCombTail .. +136)
@@ -289,11 +294,19 @@ struct WarpMem {
   const u32* win;          // shared: [2, win_words] code | ambiguity words
   i64 base;                // query position of the window's first field
   int t;                   // this thread's index in the warp
+  // pallas mode: whether the lane got a compaction slot this iteration,
+  // and the SA word its slot read (seed_lockstep sets both before a step)
+  bool sa_ok;
+  i64 sa_word;
 
   __device__ __forceinline__ bool writer() const { return t == 0; }
   __device__ __forceinline__ u32 qword(int plane, i64 look, int j) const {
-    return word_at(win + plane * a.win_words, static_cast<int>(look - base),
-                   j);
+    if constexpr (kStaged)
+      return word_at(win + plane * a.win_words, static_cast<int>(look - base),
+                     j);
+    else
+      return word_at(a.q_rows + (look >> 8) * 64 + plane * 32,
+                     static_cast<int>(look & 255), j);
   }
   __device__ __forceinline__ u64 comb(i64 row) const {
     if (row >= kCombTail && row < kInitOff) return comb_tail[row - kCombTail];
@@ -361,9 +374,9 @@ struct WarpMem {
 };
 
 // One step of a live lane b = [start, stop): the JAX scan body. Every
-// thread that runs it for a lane holds the same Lane and computes the same
-// values (in seed_scan the whole warp; m.writer() names the thread that
-// writes the record).
+// thread that runs it for a lane (the whole warp) holds the same Lane and
+// computes the same values; m.writer() names the thread that writes the
+// record.
 template <class Mem>
 __device__ __forceinline__ void lane_step(Lane& s, const SeedArgs& a,
                                           const Mem& m, i64 b, i64 start,
@@ -450,9 +463,8 @@ __device__ __forceinline__ void lane_step(Lane& s, const SeedArgs& a,
     i64 rc_pos = 0;
     if (need) {
       if (a.mode == kModePallas) {
-        const i64 sl = a.slot[b];             // -1: past the K slots, stall
-        enter = sl >= 0;
-        if (enter) rc_pos = a.res_k[sl];
+        enter = m.sa_ok;                      // past the K slots: stall
+        rc_pos = m.sa_word;
       } else {
         enter = true;
         const i64 kc = ik1 < 0 ? 0 : (ik1 > a.seq_len ? a.seq_len : ik1);
@@ -526,50 +538,34 @@ __device__ __forceinline__ void lane_step(Lane& s, const SeedArgs& a,
   s.steps += 1;
 }
 
-__global__ void seed_step_kernel(const SeedArgs a) {
-  const i64 b = static_cast<i64>(blockIdx.x) * blockDim.x + threadIdx.x;
-  // this launch counts into live[it & 1]; it clears the other counter for
-  // the next launch (the host has already read it)
-  if (b == 0) a.live[(a.it + 1) & 1] = 0;
-  if (b >= a.B) return;
-  Lane s;
-  load_lane(s, a.state, a.B, b);
-  const i64 stop = a.stops[b];
-  if (!lane_live(s, stop)) return;            // a finished lane is inert
-  lane_step(s, a, ThreadMem{a}, b, a.starts[b], stop);
-  store_lane(s, a.state, a.B, b);
-  if (lane_live(s, stop)) atomicAdd(&a.live[a.it & 1], 1);
+// The scans' block prologue: the small tables into the head of the block's
+// shared memory. Ends in the block's barrier.
+struct SharedTables {
+  u64* comb_tail;
+  i64 *corr, *exc_pos, *exc_chr;
+};
+
+__device__ __forceinline__ SharedTables stage_tables(const SeedArgs& a,
+                                                     u64* shared64) {
+  const SharedTables s{shared64, reinterpret_cast<i64*>(shared64 + 136),
+                       reinterpret_cast<i64*>(shared64 + 136 + 12),
+                       reinterpret_cast<i64*>(shared64 + 136 + 12 + 3)};
+  for (int i = threadIdx.x; i < 136; i += blockDim.x)
+    s.comb_tail[i] = static_cast<u64>(a.comb_pairs[kCombTail + i]);
+  if (threadIdx.x < 12) s.corr[threadIdx.x] = a.init_corr[threadIdx.x];
+  if (threadIdx.x < 3) {
+    s.exc_pos[threadIdx.x] = a.t3_exc_pos[threadIdx.x];
+    s.exc_chr[threadIdx.x] = a.t3_exc_chr[threadIdx.x];
+  }
+  __syncthreads();
+  return s;
 }
 
-// Every lane to its end, a warp per lane. Dynamic shared memory:
-// kScanHead 64-bit words, then per warp 2 * win_words 32-bit words. A lane
-// that would take more than step_cap steps stops with F_STEPS = -1, which
-// the wrapper turns into an exception.
-__global__ void __launch_bounds__(kScanWarps * 32)
-seed_scan_kernel(const SeedArgs a) {
-  extern __shared__ u64 shared64[];
-  u64* comb_tail = shared64;
-  i64* corr = reinterpret_cast<i64*>(shared64 + 136);
-  i64* exc_pos = corr + 12;
-  i64* exc_chr = exc_pos + 3;
-  for (int i = threadIdx.x; i < 136; i += blockDim.x)
-    comb_tail[i] = static_cast<u64>(a.comb_pairs[kCombTail + i]);
-  if (threadIdx.x < 12) corr[threadIdx.x] = a.init_corr[threadIdx.x];
-  if (threadIdx.x < 3) {
-    exc_pos[threadIdx.x] = a.t3_exc_pos[threadIdx.x];
-    exc_chr[threadIdx.x] = a.t3_exc_chr[threadIdx.x];
-  }
-  __syncthreads();          // the only block-wide barrier: warps part here
-
-  const int warp = threadIdx.x >> 5, t = threadIdx.x & 31;
-  const i64 b = static_cast<i64>(blockIdx.x) * kScanWarps + warp;
-  if (b >= a.B) return;
-  const i64 start = a.starts[b], stop = a.stops[b];
-
-  // stage the lane's query window: flat word W of a plane (bases 16W ..
-  // 16W + 15) is column W - 16 * row of q_rows row min(W >> 4, R - 1)
-  u32* win = reinterpret_cast<u32*>(shared64 + kScanHead) +
-             static_cast<i64>(warp) * 2 * a.win_words;
+// Stage a lane's query window, by its warp: flat word W of a plane (bases
+// 16W .. 16W + 15) is column W - 16 * row of q_rows row min(W >> 4, R - 1).
+// Returns the query position of the window's first field.
+__device__ __forceinline__ i64 stage_window(const SeedArgs& a, u32* win,
+                                            i64 start, int t) {
   const i64 w0 = start >> 4, last_row = (a.n_look >> 8) - 1;
   for (i64 i = t; i < a.win_words; i += 32) {
     const i64 row = min((w0 + i) >> 4, last_row);
@@ -579,8 +575,29 @@ seed_scan_kernel(const SeedArgs a) {
     win[a.win_words + i] = in ? a.q_rows[row * 64 + 32 + col] : 0u;
   }
   __syncwarp();
+  return w0 << 4;
+}
 
-  const WarpMem m{a, comb_tail, corr, exc_pos, exc_chr, win, w0 << 4, t};
+// Every lane to its end, a warp per lane. Dynamic shared memory:
+// kScanHead 64-bit words, then per warp 2 * win_words 32-bit words. A lane
+// that would take more than step_cap steps stops with F_STEPS = -1, which
+// the wrapper turns into an exception.
+__global__ void __launch_bounds__(kScanWarps * 32)
+seed_scan_kernel(const SeedArgs a) {
+  u64* shared64 = seeddev::dyn_smem64();
+  // the only block-wide barrier: warps part after it
+  const SharedTables tb = stage_tables(a, shared64);
+
+  const int warp = threadIdx.x >> 5, t = threadIdx.x & 31;
+  const i64 b = static_cast<i64>(blockIdx.x) * kScanWarps + warp;
+  if (b >= a.B) return;
+  const i64 start = a.starts[b], stop = a.stops[b];
+  u32* win = reinterpret_cast<u32*>(shared64 + kScanHead) +
+             static_cast<i64>(warp) * 2 * a.win_words;
+  const i64 base = stage_window(a, win, start, t);
+
+  const WarpMem<true> m{a, tb.comb_tail, tb.corr, tb.exc_pos, tb.exc_chr,
+                        win, base, t, false, 0};
   Lane s;
   load_lane(s, a.state, a.B, b);
   while (lane_live(s, stop)) {
@@ -591,6 +608,159 @@ seed_scan_kernel(const SeedArgs a) {
     lane_step(s, a, m, b, start, stop);
   }
   if (t == 0) store_lane(s, a.state, a.B, b);
+}
+
+// A lane that enters direct extension this iteration and has its SA word
+// still to read (ops/seeding._sa_need).
+__device__ __forceinline__ bool lane_needs_sa(const Lane& s) {
+  return s.phase == kPhaseExt && s.ik2 == 1 && !s.dir_set;
+}
+
+// One lock-step iteration of one live lane: in pallas mode its compaction
+// slot and its slot's read, then the step. `pos` counts the lanes that
+// needed an SA word before this one, in lane order (cumsum(need) - 1 of the
+// host loop); the first gather_k of an iteration get a slot, the others
+// stall: their step moves nothing and is counted all the same.
+template <bool kStaged>
+__device__ __forceinline__ void lockstep_lane(Lane& s, const SeedArgs& a,
+                                              WarpMem<kStaged>& m, i64 b,
+                                              i64 start, i64 stop, i64& pos,
+                                              i64& gathered, i64& stalled) {
+  m.sa_ok = false;
+  m.sa_word = 0;
+  if (a.mode == kModePallas && lane_needs_sa(s)) {
+    m.sa_ok = pos < a.gather_k;
+    const i64 kc = s.ik1 < 0 ? 0 : (s.ik1 > a.seq_len ? a.seq_len : s.ik1);
+    m.sa_word = gatherdev::masked_word(
+        a.sa_rows, m.sa_ok ? static_cast<int32_t>(kc) : -1);
+    gathered += m.sa_ok;
+    stalled += !m.sa_ok;
+    ++pos;
+  }
+  lane_step(s, a, m, b, start, stop);
+}
+
+// The whole lock-step scan: every lane one step an iteration until none is
+// live, max_iters iterations have run (max_iters > 0) or step_cap
+// iterations have (the wrapper raises if lanes are live then). Launched
+// cooperatively with a.blocks blocks of kLockWarps warps; warp w of the
+// grid owns lanes [w * lanes_per_warp, (w + 1) * lanes_per_warp), so blocks
+// and warps hold the lanes in lane order. kStaged (lanes_per_warp == 1):
+// the lane's state stays in registers and its query window in shared
+// memory, as in seed_scan; otherwise each step loads and stores the state
+// tensor and reads q_rows. Dynamic shared memory: kLockHead 64-bit words,
+// then (kStaged) per warp 2 * win_words 32-bit words.
+//
+// An iteration: every warp has counted, at the end of its last step, how
+// many of its lanes need an SA word next and how many are live; thread 0
+// of the block publishes the block's sums to block_counts[parity]; one
+// grid barrier; every warp reads all blocks' sums (the live total decides
+// whether the loop goes on, the same for every block) and steps its lanes.
+// Two parities suffice: a block writes parity p again only after the
+// barrier in between, which no block passes before all have read.
+template <bool kStaged>
+__global__ void __launch_bounds__(kLockWarps * 32)
+seed_lockstep_kernel(const SeedArgs a) {
+  u64* shared64 = seeddev::dyn_smem64();
+  const SharedTables tb = stage_tables(a, shared64);
+  u64* warp_counts = shared64 + kScanHead;      // [2, kLockWarps]
+
+  const int warp = threadIdx.x >> 5, t = threadIdx.x & 31;
+  const int n_blocks = static_cast<int>(gridDim.x);
+  const i64 w = static_cast<i64>(blockIdx.x) * kLockWarps + warp;
+  const i64 lo = min(w * a.lanes_per_warp, a.B);
+  const i64 hi = min(lo + a.lanes_per_warp, a.B);
+  const bool pallas = a.mode == kModePallas;
+
+  WarpMem<kStaged> m{a, tb.comb_tail, tb.corr, tb.exc_pos, tb.exc_chr,
+                     nullptr, 0, t, false, 0};
+  Lane s;                          // kStaged: this warp's one lane
+  i64 start = 0, stop = 0;
+  u32 need = 0, live = 0;          // this warp's lanes, for the next step
+  if (kStaged) {
+    if (lo < hi) {
+      start = a.starts[lo];
+      stop = a.stops[lo];
+      u32* win = reinterpret_cast<u32*>(shared64 + kLockHead) +
+                 static_cast<i64>(warp) * 2 * a.win_words;
+      m.base = stage_window(a, win, start, t);
+      m.win = win;
+      load_lane(s, a.state, a.B, lo);
+      live = lane_live(s, stop);
+      need = pallas && lane_needs_sa(s);
+    }
+  } else {
+    for (i64 b = lo; b < hi; ++b) {
+      load_lane(s, a.state, a.B, b);
+      live += lane_live(s, a.stops[b]);
+      need += pallas && lane_needs_sa(s);
+    }
+  }
+
+  const i64 limit = a.max_iters > 0 ? a.max_iters : a.step_cap;
+  i64 it = 0, gathered = 0, stalled = 0;
+  u32 live_all = 0;
+  for (;;) {
+    const int par = static_cast<int>(it & 1);
+    if (t == 0)
+      warp_counts[par * kLockWarps + warp] =
+          need | (static_cast<u64>(live) << 32);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      u64 sum = 0;                 // each half stays below 2^32: B lanes
+      for (int i = 0; i < kLockWarps; ++i)
+        sum += warp_counts[par * kLockWarps + i];
+      __stcg(&a.block_counts[par * n_blocks + blockIdx.x], sum);
+    }
+    seeddev::grid_sync(a.block_counts + 2 * n_blocks,
+                       static_cast<u64>(it + 1) * n_blocks);
+    // lanes needing a word in the blocks before this one; live lanes in all
+    u32 need_before = 0;
+    live_all = 0;
+    for (int i = t; i < n_blocks; i += 32) {
+      const u64 v = __ldcg(&a.block_counts[par * n_blocks + i]);
+      live_all += static_cast<u32>(v >> 32);
+      if (i < static_cast<int>(blockIdx.x)) need_before += static_cast<u32>(v);
+    }
+    live_all = __reduce_add_sync(kFull, live_all);
+    if (live_all == 0 || it >= limit) break;
+    i64 pos = __reduce_add_sync(kFull, need_before);
+    for (int i = 0; i < warp; ++i)
+      pos += static_cast<u32>(warp_counts[par * kLockWarps + i]);
+
+    if (kStaged) {
+      if (live) {
+        lockstep_lane(s, a, m, lo, start, stop, pos, gathered, stalled);
+        live = lane_live(s, stop);
+        need = pallas && lane_needs_sa(s);
+      }
+    } else {
+      need = live = 0;
+      for (i64 b = lo; b < hi; ++b) {
+        load_lane(s, a.state, a.B, b);
+        stop = a.stops[b];
+        if (!lane_live(s, stop)) continue;      // a finished lane is inert
+        lockstep_lane(s, a, m, b, a.starts[b], stop, pos, gathered, stalled);
+        // the threads of a warp are not in step: every one has loaded this
+        // lane's state before thread 0 overwrites it
+        __syncwarp();
+        if (t == 0) store_lane(s, a.state, a.B, b);
+        live += lane_live(s, stop);
+        need += pallas && lane_needs_sa(s);
+      }
+    }
+    ++it;
+  }
+
+  if (kStaged && t == 0 && lo < hi) store_lane(s, a.state, a.B, lo);
+  if (t == 0 && gathered) atomicAdd(&a.counters[C_GATHERED],
+                                    static_cast<u64>(gathered));
+  if (t == 0 && stalled) atomicAdd(&a.counters[C_STALLED],
+                                   static_cast<u64>(stalled));
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    a.counters[C_ITERS] = static_cast<u64>(it);
+    a.counters[C_LIVE] = live_all;
+  }
 }
 
 // LF mapping (ops/rank.lf_t3): the rank one text position to the left.
@@ -624,41 +794,120 @@ __global__ void resolve_sa_kernel(const ResolveArgs a) {
 }  // namespace
 
 // C entry points. args points to a host struct of device pointers and
-// scalars; stream is a cudaStream_t. Each returns cudaGetLastError() after
-// the launch (0 = launched).
+// scalars; stream is a cudaStream_t. Each returns a CUDA error code: of the
+// launch (0 = launched), or of the call that prepared it.
+
+namespace {
+
+cudaLaunchConfig_t launch_config(i64 blocks, int threads, size_t shared,
+                                 void* stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = shared;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  return cfg;
+}
+
+// The error code of a launch that returned e. Reading the last error also
+// clears it, so that a refused launch does not show up after the next one.
+int launched(cudaError_t e) {
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(e != cudaSuccess ? e : last);
+}
+
+// A block may use more than 48 KB of dynamic shared memory only after the
+// kernel has been allowed it.
+template <class K>
+cudaError_t allow_shared(K kernel, size_t shared) {
+  if (shared <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(shared));
+}
+
+size_t scan_shared(int head, int warps, i64 win_words) {
+  return head * sizeof(u64) +
+         static_cast<size_t>(warps) * 2 * win_words * sizeof(u32);
+}
+
+template <class K>
+cudaError_t resident_blocks(K kernel, size_t shared, int* blocks) {
+  cudaError_t e = allow_shared(kernel, shared);
+  if (e != cudaSuccess) return e;
+  int dev = 0, n_sm = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                    kLockWarps * 32, shared);
+  *blocks = per_sm * n_sm;
+  return e;
+}
+
+template <class K>
+int launch_lockstep(K kernel, const SeedArgs* args, size_t shared,
+                    void* stream) {
+  cudaError_t e = allow_shared(kernel, shared);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg =
+      launch_config(args->blocks, kLockWarps * 32, shared, stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return launched(cudaLaunchKernelEx(&cfg, kernel, *args));
+}
+
+}  // namespace
 
 extern "C" int gsalign_seed_scan(const SeedArgs* args, void* stream) {
   if (args->B <= 0) return 0;
-  const size_t shared = kScanHead * sizeof(u64) +
-                        static_cast<size_t>(kScanWarps) * 2 * args->win_words *
-                            sizeof(u32);
-  if (shared > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        seed_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(shared));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int blocks =
-      static_cast<int>((args->B + kScanWarps - 1) / kScanWarps);
-  seed_scan_kernel<<<blocks, kScanWarps * 32, shared,
-                     static_cast<cudaStream_t>(stream)>>>(*args);
-  return static_cast<int>(cudaGetLastError());
+  const size_t shared = scan_shared(kScanHead, kScanWarps, args->win_words);
+  cudaError_t e = allow_shared(seed_scan_kernel, shared);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const cudaLaunchConfig_t cfg =
+      launch_config((args->B + kScanWarps - 1) / kScanWarps, kScanWarps * 32,
+                    shared, stream);
+  return launched(cudaLaunchKernelEx(&cfg, seed_scan_kernel, *args));
 }
 
-extern "C" int gsalign_seed_step(const SeedArgs* args, void* stream) {
+// The most blocks of seed_lockstep that the current device holds at once:
+// with each warp's query window of win_words words a plane staged in shared
+// memory, or (win_words < 0) with no window. 0 blocks: the window does not
+// fit a block's shared memory.
+extern "C" int gsalign_seed_lockstep_blocks(i64 win_words, int* blocks) {
+  *blocks = 0;
+  if (win_words < 0)
+    return static_cast<int>(resident_blocks(seed_lockstep_kernel<false>,
+                                            scan_shared(kLockHead, 0, 0),
+                                            blocks));
+  const size_t shared = scan_shared(kLockHead, kLockWarps, win_words);
+  if (shared > 227 * 1024) return 0;
+  return static_cast<int>(
+      resident_blocks(seed_lockstep_kernel<true>, shared, blocks));
+}
+
+// args->blocks blocks, launched cooperatively: a grid that the device cannot
+// hold at once is refused (an error code), never shrunk.
+extern "C" int gsalign_seed_lockstep(const SeedArgs* args, void* stream) {
   if (args->B <= 0) return 0;
-  const int threads = 128;
-  const int blocks = static_cast<int>((args->B + threads - 1) / threads);
-  seed_step_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      *args);
-  return static_cast<int>(cudaGetLastError());
+  if (args->blocks <= 0 || args->lanes_per_warp <= 0 ||
+      args->blocks * kLockWarps * args->lanes_per_warp < args->B)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (args->lanes_per_warp == 1 && args->win_words > 0)
+    return launch_lockstep(
+        seed_lockstep_kernel<true>, args,
+        scan_shared(kLockHead, kLockWarps, args->win_words), stream);
+  return launch_lockstep(seed_lockstep_kernel<false>, args,
+                         scan_shared(kLockHead, 0, 0), stream);
 }
 
 extern "C" int gsalign_resolve_sa(const ResolveArgs* args, void* stream) {
   if (args->n <= 0) return 0;
   const int threads = 128;
-  const int blocks = static_cast<int>((args->n + threads - 1) / threads);
-  resolve_sa_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      *args);
-  return static_cast<int>(cudaGetLastError());
+  const cudaLaunchConfig_t cfg =
+      launch_config((args->n + threads - 1) / threads, threads, 0, stream);
+  return launched(cudaLaunchKernelEx(&cfg, resolve_sa_kernel, *args));
 }

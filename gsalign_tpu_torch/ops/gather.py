@@ -6,7 +6,10 @@ gsalign_tpu/ops/gather_pallas.py (masked_row_gather -> _kernel).
 masked_gather launches the hand-written kernel (csrc/gather.cu) on a CUDA
 tensor and runs masked_gather_plain, the plain torch version, on a CPU
 tensor; a build or launch failure raises. It counts its launches in
-`.launches`. Unlike the TPU kernel it needs neither K % 8 == 0 nor a table
+`.launches`. The seed scan's pallas SA mode no longer calls it on a card:
+the kernel's one read (csrc/gather_dev.cuh) runs inside the seed_lockstep
+kernel, where the slots are made (ops/seed_cuda.py), and the plain
+lock-step loop uses masked_gather_plain. Unlike the TPU kernel it needs neither K % 8 == 0 nor a table
 padded to 1024 words. An index of len(table) or more is a caller error, as
 in the JAX package.
 """

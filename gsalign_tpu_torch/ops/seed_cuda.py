@@ -5,10 +5,16 @@ wrappers.
                 lane; replaces the JAX package's whole seed-scan while_loop
                 (ops/seeding.py _seed_scan_impl) in the xla and none SA
                 modes. Plain version: seeding.seed_scan_plain.
-    seed_step   one lock-step iteration of every scan lane; replaces that
-                loop's body. pallas SA mode runs it, and it is the
-                lane-by-lane diffing tool of the other modes. Plain
-                version: seeding.seed_step_plain.
+    seed_lockstep  the same loop in lock step, every lane one step an
+                iteration, run on the card in one cooperative launch with
+                one grid barrier an iteration; pallas SA mode needs it (its
+                compaction slots couple the lanes), and makes the slots and
+                reads their SA words (the masked gather) inside it. Plain
+                version: the host loop seeding.scan_lockstep(plain=True).
+    seed_step   seed_lockstep for one iteration; replaces that loop's body
+                and is the lane-by-lane diffing tool. Plain version: one
+                iteration of the host loop (seeding.seed_step_plain after
+                seeding._sa_slots).
     resolve_sa  LF-walk ranks to their sampled SA rows; replaces the JAX
                 package's rank.resolve_sa while_loop. Plain version:
                 rank.resolve_sa.
@@ -39,10 +45,11 @@ class _SeedArgs(ctypes.Structure):
     _fields_ = [(n, _vp) for n in (
         "q_rows", "t3", "t3_major", "t3_exc_pos", "t3_exc_chr",
         "comb_pairs", "init_corr", "text_rows", "sa_rows", "starts", "stops",
-        "state", "out", "slot", "res_k", "live")] + [(n, _ll) for n in (
+        "state", "out", "block_counts", "counters")] + [(n, _ll) for n in (
             "B", "max_out", "min_seed_length", "max_seed_freq", "sensitive",
-            "order", "use_init", "use8", "seq_len", "n_look", "mode", "it",
-            "win_words", "step_cap")]
+            "order", "use_init", "use8", "seq_len", "n_look", "mode",
+            "win_words", "step_cap", "gather_k", "max_iters", "blocks",
+            "lanes_per_warp")]
 
 
 class _ResolveArgs(ctypes.Structure):
@@ -52,12 +59,17 @@ class _ResolveArgs(ctypes.Structure):
         "out")] + [(n, _ll) for n in ("n", "primary", "seq_len", "sa_intv")]
 
 
+# the C entry points of csrc/seed.cu; each returns a CUDA error code
+SIGNATURES = {
+    "gsalign_seed_scan": [ctypes.POINTER(_SeedArgs), _vp],
+    "gsalign_seed_lockstep": [ctypes.POINTER(_SeedArgs), _vp],
+    "gsalign_seed_lockstep_blocks": [_ll, ctypes.POINTER(ctypes.c_int)],
+    "gsalign_resolve_sa": [ctypes.POINTER(_ResolveArgs), _vp]}
+
+
 def build() -> ctypes.CDLL:
     """Build (see ops/cuda_build.py) and load csrc/seed.cu."""
-    return cuda_build.bind("seed", {
-        "gsalign_seed_scan": [ctypes.POINTER(_SeedArgs), _vp],
-        "gsalign_seed_step": [ctypes.POINTER(_SeedArgs), _vp],
-        "gsalign_resolve_sa": [ctypes.POINTER(_ResolveArgs), _vp]})
+    return cuda_build.bind("seed", SIGNATURES)
 
 
 def _ptr(t: Optional[torch.Tensor], dtype, dev, name: str):
@@ -73,22 +85,22 @@ def _ptr(t: Optional[torch.Tensor], dtype, dev, name: str):
     return t.data_ptr()
 
 
-def _seed_args(dfm, q_rows, lanes, prm, it=0, slot=None, res_k=None,
-               win_words=0, step_cap=0) -> _SeedArgs:
-    """The argument struct of seed_step and seed_scan, after checking every
-    tensor."""
+def _seed_args(dfm, q_rows, lanes, prm, win_words=0, step_cap=0,
+               block_counts=None, **lockstep) -> _SeedArgs:
+    """The argument struct of seed_scan and seed_lockstep (whose plan is
+    `lockstep`: gather_k, max_iters, blocks, lanes_per_warp), after
+    checking every tensor."""
     dev = lanes.st.device
     mode = seeding.SA_MODES.index(prm.sa_mode)
-    if prm.sa_mode == "pallas" and (slot is None or res_k is None):
-        raise ValueError("pallas mode needs slot and res_k")
     if prm.sa_mode != "none" and not dfm.direct_ok:
         raise ValueError("direct mode needs a full-SA index")
     B = lanes.st.shape[1]
     if lanes.st.shape != (seeding.N_FIELDS, B) or \
             lanes.out.shape != (B, prm.max_out, 3) or \
             lanes.starts.shape != (B,) or lanes.stops.shape != (B,) or \
-            lanes.live.shape != (2,) or \
-            (slot is not None and slot.shape != (B,)):
+            lanes.counters.shape != (seeding.N_COUNTERS,) or \
+            (block_counts is not None and block_counts.shape
+             != (2 * lockstep["blocks"] + 1,)):
         raise ValueError("lane tensors disagree in shape")
     if q_rows.dim() != 2 or q_rows.shape[0] < 1 or q_rows.shape[1] != 64:
         raise ValueError(f"q_rows must be [R >= 1, 64], got "
@@ -110,23 +122,31 @@ def _seed_args(dfm, q_rows, lanes, prm, it=0, slot=None, res_k=None,
         stops=_ptr(lanes.stops, i64, dev, "stops"),
         state=_ptr(lanes.st, i64, dev, "state"),
         out=_ptr(lanes.out, i64, dev, "out"),
-        slot=_ptr(slot, i64, dev, "slot"),
-        res_k=_ptr(res_k, i32, dev, "res_k"),
-        live=_ptr(lanes.live, i32, dev, "live"),
+        block_counts=_ptr(block_counts, i64, dev, "block_counts"),
+        counters=_ptr(lanes.counters, i64, dev, "counters"),
         B=B, max_out=prm.max_out, min_seed_length=prm.min_seed_length,
         max_seed_freq=prm.max_seed_freq, sensitive=int(prm.sensitive),
         order=dfm.init_order,
         use_init=int(prm.min_seed_length > dfm.init_order),
         use8=int(prm.min_seed_length > 8), seq_len=dfm.seq_len,
-        n_look=q_rows.shape[0] * 256, mode=mode, it=it,
-        win_words=win_words, step_cap=step_cap)
+        n_look=q_rows.shape[0] * 256, mode=mode,
+        win_words=win_words, step_cap=step_cap, **lockstep)
 
 
-# seed_scan stages each lane's query window in shared memory, four lanes a
-# block: a block may use 227 KB (232,448 bytes) on an H100
+# the scans stage each lane's query window in shared memory, a lane a warp,
+# four warps a seed_scan block and sixteen a seed_lockstep block (csrc/seed.cu
+# kScanWarps, kLockWarps): a block may use 227 KB (232,448 bytes) on an H100
 _SCAN_WARPS = 4
+_LOCK_WARPS = 16
 _SCAN_HEAD_BYTES = (136 + 12 + 3 + 3) * 8
 _MAX_SHARED_BYTES = 232448
+
+
+def _win_words(max_len: int) -> int:
+    """32-bit words a plane of a staged query window: a lane reads from its
+    start's word to 16 words of compare and one of shift past its stop's
+    word."""
+    return (max_len >> 4) + 20
 
 
 def _step_cap(max_len: int) -> int:
@@ -154,9 +174,7 @@ def seed_scan(dfm, q_rows: torch.Tensor, lanes, prm) -> np.ndarray:
     if prm.sa_mode == "pallas":
         raise ValueError("seed_scan runs the xla and none SA modes: pallas "
                          "mode couples the lanes and needs the lock step")
-    # a lane reads from its start's word to 16 words of compare and one of
-    # shift past its stop's word
-    win_words = (lanes.max_len >> 4) + 20
+    win_words = _win_words(lanes.max_len)
     shared = _SCAN_HEAD_BYTES + _SCAN_WARPS * 2 * win_words * 4
     if shared > _MAX_SHARED_BYTES:
         raise ValueError(f"lanes of {lanes.max_len} bases need {shared} "
@@ -168,7 +186,7 @@ def seed_scan(dfm, q_rows: torch.Tensor, lanes, prm) -> np.ndarray:
         cuda_build.raise_on(build().gsalign_seed_scan(
             ctypes.byref(args), cuda_build.stream(dev)), "seed_scan")
         seed_scan.launches += 1
-    st = lanes.st.cpu().numpy()
+    st = lanes.read_back()[0]
     over = np.flatnonzero(st[seeding.F_STEPS] < 0)
     if over.size:
         raise RuntimeError(f"seed_scan: lanes {over[:8].tolist()} exceeded "
@@ -179,24 +197,129 @@ def seed_scan(dfm, q_rows: torch.Tensor, lanes, prm) -> np.ndarray:
 seed_scan.launches = 0
 
 
-def seed_step(dfm, q_rows: torch.Tensor, lanes, prm, it: int,
-              slot: Optional[torch.Tensor] = None,
-              res_k: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Kernel seed_step: one iteration of every lane of `lanes`
-    (seeding.ScanLanes), in place. Returns the count of lanes still live as
-    a 0-d device tensor (reading it is the loop's host sync). `it` is the
-    iteration number: its parity picks the live counter."""
+def lockstep_plan(B: int, staged_blocks: int, bare_blocks: int,
+                  max_blocks: Optional[int] = None):
+    """seed_lockstep's grid for B lanes: (blocks, lanes a warp, staged).
+    staged_blocks and bare_blocks are the blocks the card holds at once
+    with and without the lanes' query windows in shared memory
+    (resident_blocks); max_blocks caps the grid below that. A warp a lane
+    with the window staged where that fits; else each warp owns a run of
+    consecutive lanes, as few as the grid allows."""
+    if max_blocks is not None:
+        staged_blocks = min(staged_blocks, max_blocks)
+        bare_blocks = min(bare_blocks, max_blocks)
+    want = -(-B // _LOCK_WARPS)
+    if want <= staged_blocks:
+        return want, 1, True
+    if bare_blocks < 1:
+        raise ValueError(f"seed_lockstep needs a grid of at least one "
+                         f"block, got {bare_blocks}")
+    per = -(-B // (_LOCK_WARPS * min(bare_blocks, want)))
+    return -(-B // (_LOCK_WARPS * per)), per, False
+
+
+def slots_blockwise(need: np.ndarray, lanes_per_block: int, K: int
+                    ) -> np.ndarray:
+    """The compaction slots as the seed_lockstep kernel makes them, on the
+    host: each block of consecutive lanes counts its needy lanes, a lane's
+    position is the exclusive sum of the counts of the blocks before its
+    own plus its rank among its block's needy lanes, and positions of K and
+    above get no slot (-1). Equals seeding._sa_slots' slot (the tests hold
+    one against the other); nothing on a card's path calls it."""
+    need = np.asarray(need, dtype=bool)
+    B = need.shape[0]
+    pad = -B % lanes_per_block
+    blocks = np.concatenate([need, np.zeros(pad, bool)]).reshape(
+        -1, lanes_per_block)
+    counts = blocks.sum(1)
+    before = np.cumsum(counts) - counts
+    pos = (before[:, None] + np.cumsum(blocks, 1) - 1).reshape(-1)[:B]
+    return np.where(need & (pos < K), pos, -1)
+
+
+def resident_blocks(lib, win_words: int) -> int:
+    """The most seed_lockstep blocks the current device holds at once, with
+    query windows of win_words words staged (none for win_words < 0)."""
+    n = ctypes.c_int(0)
+    cuda_build.raise_on(lib.gsalign_seed_lockstep_blocks(
+        win_words, ctypes.byref(n)), "seed_lockstep occupancy query")
+    return n.value
+
+
+def launch_lockstep(lib, stream, dfm, q_rows, lanes, prm, max_iters: int,
+                    max_blocks: Optional[int]) -> None:
+    """Plan and launch seed_lockstep from the loaded library `lib` on the
+    lanes' device. (Apart from the wrapper below, the host rehearsal of
+    csrc/seed.cu calls it, with a library built for the host.)"""
+    B = lanes.st.shape[1]
+    win_words = _win_words(lanes.max_len)
+    blocks, per, staged = lockstep_plan(
+        B, resident_blocks(lib, win_words), resident_blocks(lib, -1),
+        max_blocks)
+    K = min(seeding._SA_GATHER_K, B)
+    # every iteration steps at least one lane, or the first K needy ones
+    cap = _step_cap(lanes.max_len) * (B if prm.sa_mode == "pallas" and B > K
+                                      else 1)
+    # the blocks' counts, by the iteration's parity, and the grid barrier's
+    # word, which starts at zero
+    counts = torch.zeros(2 * blocks + 1, dtype=torch.int64,
+                         device=lanes.st.device)
+    args = _seed_args(dfm, q_rows, lanes, prm,
+                      win_words=win_words if staged else 0, step_cap=cap,
+                      block_counts=counts, gather_k=K, max_iters=max_iters,
+                      blocks=blocks, lanes_per_warp=per)
+    cuda_build.raise_on(lib.gsalign_seed_lockstep(ctypes.byref(args), stream),
+                        "seed_lockstep")
+
+
+def seed_lockstep(dfm, q_rows: torch.Tensor, lanes, prm, max_iters: int = 0,
+                  max_blocks: Optional[int] = None):
+    """Kernel seed_lockstep: every lane of `lanes` (seeding.ScanLanes) in
+    lock step, in place, in one cooperative launch: until no lane is live,
+    or for max_iters iterations (max_iters > 0). max_blocks caps the grid
+    (a test forces several lanes a warp with it); a grid the card cannot
+    hold at once raises. Returns (lane state int64 [N_FIELDS, B], counters
+    int64 [N_COUNTERS]: seeding.C_ITERS, C_LIVE, C_GATHERED, C_STALLED) on
+    the host: reading them back is the scan's one synchronisation. Raises
+    if the scan ran into the iteration limit. Beside its launches it counts
+    the SA words its launches gathered and the lane-iterations they stalled
+    (.gathered, .stalled)."""
     dev = lanes.st.device
     if dev.type == "cpu":
-        return seeding.seed_step_plain(dfm, q_rows, lanes, prm, it, slot,
-                                       res_k)
+        seeding.scan_lockstep(dfm, q_rows, lanes, prm, plain=True,
+                              max_iters=max_iters)
+        return lanes.read_back()
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    args = _seed_args(dfm, q_rows, lanes, prm, it, slot, res_k)
-    cuda_build.raise_on(build().gsalign_seed_step(
-        ctypes.byref(args), cuda_build.stream(dev)), "seed_step")
-    seed_step.launches += 1
-    return lanes.live[it & 1]
+    lanes.counters.zero_()
+    if lanes.max_len > 0:
+        launch_lockstep(build(), cuda_build.stream(dev), dfm, q_rows, lanes,
+                        prm, max_iters, max_blocks)
+        seed_lockstep.launches += 1
+    st, counters = lanes.read_back()
+    seed_lockstep.gathered += int(counters[seeding.C_GATHERED])
+    seed_lockstep.stalled += int(counters[seeding.C_STALLED])
+    if max_iters <= 0 and counters[seeding.C_LIVE] > 0:
+        raise RuntimeError(f"seed_lockstep: {counters[seeding.C_LIVE]} lanes "
+                           f"still live at the iteration limit "
+                           f"{counters[seeding.C_ITERS]}")
+    return st, counters
+
+
+seed_lockstep.launches = 0
+seed_lockstep.gathered = 0
+seed_lockstep.stalled = 0
+
+
+def seed_step(dfm, q_rows: torch.Tensor, lanes, prm) -> int:
+    """Kernel seed_step: one lock-step iteration of every lane of `lanes`
+    (seeding.ScanLanes), in place: seed_lockstep with max_iters = 1, the
+    slots and their reads made inside it. Returns the count of lanes still
+    live. Its launches are counted here and in seed_lockstep.launches."""
+    n0 = seed_lockstep.launches
+    counters = seed_lockstep(dfm, q_rows, lanes, prm, max_iters=1)[1]
+    seed_step.launches += seed_lockstep.launches - n0
+    return int(counters[seeding.C_LIVE])
 
 
 seed_step.launches = 0

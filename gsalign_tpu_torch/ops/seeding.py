@@ -32,22 +32,27 @@ Shortcuts that keep the seed set exact (as in the JAX package):
 How a lane entering direct mode reads its SA word (sa_mode, from
 GSALIGN_SA_MODE as the JAX package's _pick_sa_mode): "xla" (the default)
 reads sa_rows directly; "pallas" compacts the entering lanes, in lane
-order, into _SA_GATHER_K slots and reads them with one masked_gather
-(the port of gather_pallas), and a lane beyond the slots stalls for one
+order, into _SA_GATHER_K slots whose words one masked gather reads (the
+port of gather_pallas), and a lane beyond the slots stalls for one
 iteration. Stalls change the iteration count, never the seeds.
 
-Two ways to run the lanes to their ends (scan_lanes):
-  seed_scan  one kernel launch in which every lane runs to completion on
-           its own (ops/seed_cuda.seed_scan). In the "xla" and "none" modes
-           a lane's trajectory depends on nothing but its own state and
-           the read-only tables, so lanes need no lock step. Its plain
-           version is the lock-step loop of seed_step_plain
-           (seed_scan_plain): on the CPU, and beside the kernel on a card.
-  lock step  one seed_step over all lanes per iteration of a host loop,
-           with one 4-byte read-back each (ops/seed_cuda.seed_step; on the
-           CPU seed_step_plain). "pallas" mode needs it, because its K
-           slots couple the lanes; in the other modes it remains as the
-           lane-by-lane diffing tool (scan_lockstep).
+Two ways to run the lanes to their ends (scan_lanes), one kernel launch a
+scan round each:
+  seed_scan      every lane runs to completion on its own
+           (ops/seed_cuda.seed_scan). In the "xla" and "none" modes a
+           lane's trajectory depends on nothing but its own state and the
+           read-only tables, so lanes need no lock step. Its plain version
+           is seed_scan_plain.
+  seed_lockstep  every lane takes one step an iteration, and the loop, the
+           slot compaction and the gather run on the card
+           (ops/seed_cuda.seed_lockstep). "pallas" mode needs the lock
+           step, because its K slots couple the lanes; in the other modes
+           it remains as the lane-by-lane diffing tool (max_iters stops it
+           after so many iterations; seed_cuda.seed_step is one).
+The plain version of both is the host loop scan_lockstep: one
+seed_step_plain over all lanes an iteration, in pallas mode after _sa_slots
+and masked_gather_plain. It runs on the CPU and, beside the kernels, in the
+comparisons on a card; nothing on a card's main path calls it.
 Both give every lane the same steps, so the same records, final state and
 per-lane step counts (F_STEPS), whose maximum is the lock-step loop's
 iteration count. The JAX package's speculative segments, halving-width
@@ -141,6 +146,12 @@ def _clz32(x: torch.Tensor) -> torch.Tensor:
  F_DIR_SET, F_DIR_OFF, F_OUT_N, F_POISON, F_STEPS) = range(12)
 N_FIELDS = 12
 
+# rows of a scan's counters (int64 [N_COUNTERS]), which the lock-step scan
+# fills: iterations run, lanes still live after the last, SA words gathered
+# through the compaction slots, and lane-iterations stalled past the slots
+C_ITERS, C_LIVE, C_GATHERED, C_STALLED = range(4)
+N_COUNTERS = 4
+
 SA_MODES = ("none", "xla", "pallas")   # the kernel's mode argument: index
 _SA_GATHER_K = 512     # pallas-mode compaction slots per iteration (tests
                        # shrink it to exercise the stall-retry path)
@@ -169,13 +180,15 @@ class ScanParams:
 
 @dataclasses.dataclass
 class ScanLanes:
-    """The device state of one scan round, updated in place by seed_step
-    and seed_scan."""
+    """The device state of one scan round, updated in place by the scans.
+    st and counters are views of one buffer, so that one copy reads both
+    back (read_back)."""
     starts: torch.Tensor  # int64 [B]
     stops: torch.Tensor   # int64 [B]
     st: torch.Tensor      # int64 [N_FIELDS, B] lane state (F_* rows)
     out: torch.Tensor     # int64 [B, max_out, 3] records (meta, k0, freq)
-    live: torch.Tensor    # int32 [2] seed_step's live-lane counters
+    counters: torch.Tensor  # int64 [N_COUNTERS] (C_* rows)
+    buf: torch.Tensor     # int64 [N_FIELDS * B + N_COUNTERS]: st | counters
     max_len: int          # longest lane, max(stops - starts, 0), in bases
 
     @staticmethod
@@ -184,7 +197,8 @@ class ScanLanes:
         B = len(starts)
         lens = np.asarray(stops, dtype=np.int64) \
             - np.asarray(starts, dtype=np.int64)
-        st = np.zeros((N_FIELDS, B), dtype=np.int64)
+        host = np.zeros(N_FIELDS * B + N_COUNTERS, dtype=np.int64)
+        st = host[:N_FIELDS * B].reshape(N_FIELDS, B)
         st[F_CURSOR] = starts
         st[F_POISON] = POISON_NONE
 
@@ -192,23 +206,31 @@ class ScanLanes:
             return torch.as_tensor(np.asarray(a, dtype=np.int64),
                                    device=device)
 
+        buf = up(host)
         return ScanLanes(
-            starts=up(starts), stops=up(stops), st=up(st),
+            starts=up(starts), stops=up(stops),
+            st=buf[:N_FIELDS * B].view(N_FIELDS, B),
             out=torch.zeros((B, max_out, 3), dtype=torch.int64,
                             device=device),
-            live=torch.zeros(2, dtype=torch.int32, device=device),
+            counters=buf[N_FIELDS * B:], buf=buf,
             max_len=max(0, int(lens.max())) if B else 0)
+
+    def read_back(self):
+        """(lane state int64 [N_FIELDS, B], counters int64 [N_COUNTERS]) on
+        the host, by one copy: on a card the scan's one synchronisation."""
+        host = self.buf.cpu().numpy()
+        n = host.shape[0] - N_COUNTERS
+        return host[:n].reshape(N_FIELDS, -1), host[n:]
 
 
 def seed_step_plain(dfm: DeviceFMIndex, q_rows: torch.Tensor,
-                    lanes: ScanLanes, prm: ScanParams, it: int = 0,
+                    lanes: ScanLanes, prm: ScanParams,
                     slot: Optional[torch.Tensor] = None,
                     res_k: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One lock-step iteration of every lane, plain torch: updates
     lanes.st and lanes.out in place and returns the number of lanes still
     live (a 0-d tensor). In pallas mode slot (int64 [B], -1 for none) and
-    res_k (int32 [K]) carry the compacted SA reads (_sa_slots). `it` is the
-    kernel's counter parity, unused here."""
+    res_k (int32 [K]) carry the compacted SA reads (_sa_slots)."""
     i64 = torch.int64
     st = lanes.st
     starts_t, stops_t = lanes.starts, lanes.stops
@@ -396,14 +418,20 @@ def seed_step_plain(dfm: DeviceFMIndex, q_rows: torch.Tensor,
     return live.sum()
 
 
+def _sa_need(st: torch.Tensor) -> torch.Tensor:
+    """The lanes that enter direct mode this iteration and have their SA
+    word still to read (bool [B])."""
+    return (st[F_PHASE] == PHASE_EXT) & (st[F_IK2] == 1) \
+        & (st[F_DIR_SET] == 0)
+
+
 def _sa_slots(dfm: DeviceFMIndex, lanes: ScanLanes, K: int, gather):
     """pallas mode: compact the lanes that enter direct mode this
     iteration, in lane order, into K slots and read their SA words with one
     masked gather (JAX seeding.py:366-386). Returns (slot int64 [B], -1
     past the K slots; res_k int32 [K])."""
     st = lanes.st
-    need = (st[F_PHASE] == PHASE_EXT) & (st[F_IK2] == 1) \
-        & (st[F_DIR_SET] == 0)
+    need = _sa_need(st)
     pos = torch.cumsum(need, 0) - 1
     slot = torch.where(need & (pos < K), pos, -1)
     idx = torch.full((K + 1,), -1, dtype=torch.int32, device=st.device)
@@ -415,28 +443,37 @@ def _sa_slots(dfm: DeviceFMIndex, lanes: ScanLanes, K: int, gather):
 
 
 def scan_lockstep(dfm: DeviceFMIndex, q_rows: torch.Tensor,
-                  lanes: ScanLanes, prm: ScanParams, plain: bool) -> int:
-    """Run every lane of `lanes` to its end in lock step, in place: one
-    step over all lanes per iteration, until none is live. plain runs the
-    plain torch step and gather on any device; otherwise a CUDA device
-    runs the seed_step and masked_gather kernels. Returns the iteration
-    count (the maximum of the lanes' F_STEPS)."""
-    from gsalign_tpu_torch.ops import gather as gather_ops
-    from gsalign_tpu_torch.ops import seed_cuda
-    step = seed_step_plain if plain else seed_cuda.seed_step
-    gather = gather_ops.masked_gather_plain if plain \
-        else gather_ops.masked_gather
+                  lanes: ScanLanes, prm: ScanParams, plain: bool,
+                  max_iters: int = 0) -> int:
+    """Run every lane of `lanes` in lock step, in place: one step over all
+    lanes per iteration, until none is live or (max_iters > 0) max_iters
+    iterations have run. plain runs the host loop of the plain torch step,
+    slots and gather on any device: the plain version of the seed_lockstep
+    kernel, which runs otherwise (ops/seed_cuda.seed_lockstep). Fills
+    lanes.counters and returns the iteration count (without stalls, the
+    maximum of the lanes' F_STEPS)."""
+    if not plain:
+        from gsalign_tpu_torch.ops import seed_cuda
+        return int(seed_cuda.seed_lockstep(dfm, q_rows, lanes, prm,
+                                           max_iters)[1][C_ITERS])
+    from gsalign_tpu_torch.ops.gather import masked_gather_plain
     K = min(_SA_GATHER_K, lanes.st.shape[1])
     n_iter = 0
-    if lanes.max_len > 0:
-        while True:
-            slot = res_k = None
-            if prm.sa_mode == "pallas":
-                slot, res_k = _sa_slots(dfm, lanes, K, gather)
-            live = step(dfm, q_rows, lanes, prm, n_iter, slot, res_k)
-            n_iter += 1
-            if int(live) == 0:            # the one host sync per iteration
-                break
+    lanes.counters.zero_()
+    live = ((lanes.st[F_PHASE] == PHASE_EXT)
+            | (lanes.st[F_CURSOR] < lanes.stops)).sum()
+    # reading the live count is the host loop's one sync an iteration
+    while int(live) > 0 and (max_iters <= 0 or n_iter < max_iters):
+        slot = res_k = None
+        if prm.sa_mode == "pallas":
+            slot, res_k = _sa_slots(dfm, lanes, K, masked_gather_plain)
+            got = (slot >= 0).sum()
+            lanes.counters[C_GATHERED] += got
+            lanes.counters[C_STALLED] += _sa_need(lanes.st).sum() - got
+        live = seed_step_plain(dfm, q_rows, lanes, prm, slot, res_k)
+        n_iter += 1
+    lanes.counters[C_ITERS] = n_iter
+    lanes.counters[C_LIVE] = live
     return n_iter
 
 
@@ -450,7 +487,7 @@ def seed_scan_plain(dfm: DeviceFMIndex, q_rows: torch.Tensor,
         raise ValueError("seed_scan runs the xla and none SA modes: pallas "
                          "mode couples the lanes and needs the lock step")
     scan_lockstep(dfm, q_rows, lanes, prm, plain=True)
-    return lanes.st.cpu().numpy()
+    return lanes.read_back()[0]
 
 
 def scan_lanes(dfm: DeviceFMIndex, q_rows: torch.Tensor, starts: np.ndarray,
@@ -459,17 +496,18 @@ def scan_lanes(dfm: DeviceFMIndex, q_rows: torch.Tensor, starts: np.ndarray,
     arrays (st, recs): the final lane state int64 [N_FIELDS, B] (F_CURSOR
     the exit position, F_POISON, F_OUT_N, F_STEPS per lane) and the emitted
     records int64 [sum(out_n), 3] in lane-major order. plain runs the plain
-    torch versions on any device; otherwise seed_scan runs the xla and none
-    modes, and the lock-step loop runs pallas mode."""
+    torch versions on any device; otherwise one kernel launch runs the
+    scan: seed_scan in the xla and none modes, seed_lockstep in pallas
+    mode."""
     if prm.min_seed_length <= 3:
         raise ValueError("the triple-step shortcuts need min_seed_length > 3")
     from gsalign_tpu_torch.ops import seed_cuda
     lanes = ScanLanes.start(starts, stops, prm.max_out, q_rows.device)
-    if prm.sa_mode == "pallas":
-        scan_lockstep(dfm, q_rows, lanes, prm, plain)
-        st = lanes.st.cpu().numpy()
-    elif plain:
-        st = seed_scan_plain(dfm, q_rows, lanes, prm)
+    if plain:
+        scan_lockstep(dfm, q_rows, lanes, prm, plain=True)
+        st = lanes.read_back()[0]
+    elif prm.sa_mode == "pallas":
+        st = seed_cuda.seed_lockstep(dfm, q_rows, lanes, prm)[0]
     else:
         st = seed_cuda.seed_scan(dfm, q_rows, lanes, prm)
     keep = torch.arange(prm.max_out, device=q_rows.device)[None, :] \
@@ -499,8 +537,8 @@ def find_seeds_all(dfm: DeviceFMIndex,
     (q_rows, starts, stops, prm, st, recs): the tests and the comparison of
     the kernels with their plain versions scan these lanes again.
     GSALIGN_SA_MODE picks the SA mode (see pick_sa_mode). plain runs the
-    plain torch versions of the seed-stage kernels (seed_scan, seed_step,
-    masked_gather, resolve_sa) on any device: the comparison with the
+    plain torch versions of the seed-stage kernels (seed_scan,
+    seed_lockstep, resolve_sa) on any device: the comparison with the
     kernels on a card uses it."""
     if chunk > 0xFFFF:
         raise ValueError("seed chunk too large for the packed emit record")

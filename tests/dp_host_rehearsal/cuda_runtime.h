@@ -1,13 +1,15 @@
 // Host stand-in for cuda_runtime.h, for rehearsing gsalign_tpu_torch/csrc/
-// dp.cu without a CUDA compiler or card: the source is compiled unchanged as
-// C++20 by g++ with this directory first on the include path. A launch
-// (cudaLaunchKernelEx) runs every CUDA thread of the grid as a std::thread;
-// warp shuffles and __syncwarp are exchanges through a per-warp array
-// between two std::barrier waits, __syncthreads a per-block barrier, the
-// cluster barrier one over the cluster's blocks, dynamic shared memory a
-// buffer a block. It checks arithmetic, indexing and the hand-over protocol
-// between warps (also across blocks of a cluster); it says nothing of what
-// nvcc accepts or of speed. Keep problems small: a thread a CUDA thread.
+// dp.cu and seed.cu without a CUDA compiler or card: the source is compiled
+// unchanged as C++20 by g++ with this directory first on the include path.
+// A launch (cudaLaunchKernelEx) runs every CUDA thread of the grid as a
+// std::thread; warp shuffles, votes, reductions and __syncwarp are
+// exchanges through a per-warp array between two std::barrier waits,
+// __syncthreads a per-block barrier, the cluster barrier one over the
+// cluster's blocks, dynamic shared memory a buffer a block; all blocks of a
+// grid run at once, as a cooperative launch's do. It checks arithmetic,
+// indexing and the protocols between warps and blocks; it says nothing of
+// what nvcc accepts or of speed. Keep problems small: a thread a CUDA
+// thread. The stand-in device holds 10 blocks at once (5 SMs of 2).
 #pragma once
 #include <algorithm>
 #include <atomic>
@@ -22,6 +24,7 @@
 #define __device__
 #define __forceinline__ inline
 #define __align__(n)
+#define __launch_bounds__(n)
 using std::max;
 using std::min;
 struct dim3 { unsigned x = 1, y = 1, z = 1; dim3() {} dim3(unsigned a) : x(a) {} };
@@ -31,16 +34,20 @@ typedef int cudaError_t;
 typedef void* cudaStream_t;
 constexpr int cudaSuccess = 0, cudaErrorInvalidValue = 1;
 constexpr int cudaFuncAttributeMaxDynamicSharedMemorySize = 8;
-enum { cudaLaunchAttributeClusterDimension = 4 };
-struct cudaLaunchAttribute { int id; struct { struct { unsigned x, y, z; } clusterDim; } val; };
+enum { cudaLaunchAttributeCooperative = 2, cudaLaunchAttributeClusterDimension = 4 };
+enum { cudaDevAttrMultiProcessorCount = 16 };
+struct cudaLaunchAttribute { int id; struct { struct { unsigned x, y, z; } clusterDim; int cooperative; } val; };
 struct cudaLaunchConfig_t { dim3 gridDim, blockDim; size_t dynamicSmemBytes; cudaStream_t stream; cudaLaunchAttribute* attrs; unsigned numAttrs; };
 template <class K> cudaError_t cudaFuncSetAttribute(K, int, int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
+inline cudaError_t cudaGetDevice(int* dev) { *dev = 0; return 0; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) { *v = 5; return 0; }
+template <class K> cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) { *n = 2; return 0; }
 
 struct ShimWarp { std::barrier<> bar{32}; int slot[32]; };
 struct ShimBlock { std::unique_ptr<std::barrier<>> bar; uint8_t* smem; std::vector<ShimWarp> warps; };
 struct ShimCluster { std::unique_ptr<std::barrier<>> bar; std::vector<ShimBlock*> blocks; };
-inline thread_local dim3 threadIdx, blockIdx, blockDim;
+inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 inline thread_local ShimWarp* shim_warp;
 inline thread_local ShimBlock* shim_block;
 inline thread_local ShimCluster* shim_cluster;
@@ -57,6 +64,24 @@ inline int __shfl_up_sync(unsigned, int v, int d) {
 inline int __vibmax_s32(int a, int b, bool* p) { *p = a >= b; return a >= b ? a : b; }
 inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) { uint64_t w = ((uint64_t)y << 32) | x; uint32_t r = 0; for (int i = 0; i < 4; ++i) { uint32_t sel = (s >> (4 * i)) & 0xf; uint32_t b = (w >> (8 * (sel & 7))) & 0xff; if (sel & 8) b = (b & 0x80) ? 0xff : 0; r |= b << (8 * i); } return r; }
 template <class T> inline T __ldcg(const T* p) { return *p; }
+template <class T> inline void __stcg(T* p, T v) { *p = v; }
+inline int __shfl_down_sync(unsigned, int v, int d) {
+  int lane = threadIdx.x & 31;
+  shim_warp->slot[lane] = v; shim_warp->bar.arrive_and_wait();
+  int r = lane + d < 32 ? shim_warp->slot[lane + d] : v; shim_warp->bar.arrive_and_wait(); return r; }
+inline unsigned __ballot_sync(unsigned, bool p) {
+  shim_warp->slot[threadIdx.x & 31] = p; shim_warp->bar.arrive_and_wait();
+  unsigned r = 0; for (int i = 0; i < 32; ++i) r |= (unsigned)(shim_warp->slot[i] != 0) << i;
+  shim_warp->bar.arrive_and_wait(); return r; }
+inline unsigned __reduce_add_sync(unsigned, unsigned v) {
+  shim_warp->slot[threadIdx.x & 31] = (int)v; shim_warp->bar.arrive_and_wait();
+  unsigned r = 0; for (int i = 0; i < 32; ++i) r += (unsigned)shim_warp->slot[i];
+  shim_warp->bar.arrive_and_wait(); return r; }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }
+inline int __ffs(int x) { return __builtin_ffs(x); }
+inline int __ffsll(long long x) { return __builtin_ffsll(x); }
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) { return __atomic_fetch_add(p, v, __ATOMIC_RELAXED); }
 inline void __nanosleep(unsigned) { std::this_thread::yield(); }
 
 template <class... Exp, class... Act>
@@ -81,7 +106,7 @@ cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(Exp
   for (unsigned b = 0; b < nb; ++b)
     for (unsigned t = 0; t < nt; ++t)
       th.emplace_back([&, b, t] {
-        threadIdx.x = t; blockIdx.x = b; blockDim.x = nt;
+        threadIdx.x = t; blockIdx.x = b; blockDim.x = nt; gridDim.x = nb;
         shim_block = &blocks[b]; shim_warp = &blocks[b].warps[t / 32]; shim_cluster = &clusters[b / cs];
         kernel(static_cast<Exp>(args)...);
       });

@@ -64,7 +64,7 @@ def test_wrappers_refuse_other_devices():
                                                device="meta"))
     lanes = seeding.ScanLanes.start([0], [5], 2, "meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        seed_cuda.seed_step(None, None, lanes, None, 0)
+        seed_cuda.seed_step(None, None, lanes, None)
     with pytest.raises(TypeError):
         seed_cuda.resolve_sa(None, torch.zeros(3, dtype=torch.int32))
 

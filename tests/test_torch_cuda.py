@@ -1,5 +1,6 @@
-"""The hand-written kernels (DP, masked_gather, seed_scan, seed_step,
-resolve_sa) against their plain torch versions on a CUDA card. Every test skips
+"""The hand-written kernels (DP, masked_gather, seed_scan, seed_lockstep
+and as one iteration of it seed_step, resolve_sa) against their plain torch
+versions on a CUDA card. Every test skips
 without a card. This file imports no JAX, so it runs on a machine without
 it:
 
@@ -235,9 +236,9 @@ def genome_and_queries(seed, lens=(3000, 1200)):
 def test_seed_scan_kernels_match_plain_on_card(card, monkeypatch, sa_intv,
                                                sa_mode, K, sensitive):
     """The whole scan through its kernels (seed_scan, or in pallas mode
-    seed_step and masked_gather; resolve_sa on a sampled index) against
-    the plain step on the same card: the same seeds, and the same
-    iteration count in every round."""
+    seed_lockstep with the slots and the gather inside it; resolve_sa on a
+    sampled index) against the plain step on the same card: the same
+    seeds, and the same iteration count in every round."""
     monkeypatch.setattr(seeding, "_SA_GATHER_K", K)
     monkeypatch.setenv("GSALIGN_SA_MODE", sa_mode)
     g, queries = genome_and_queries(sa_intv + K)
@@ -248,21 +249,25 @@ def test_seed_scan_kernels_match_plain_on_card(card, monkeypatch, sa_intv,
     plain_stats, stats = {}, {}
     want = seeding.find_seeds_all(dfm, queries, plain=True,
                                   stats=plain_stats, **kw)
-    n0 = (seed_cuda.seed_step.launches, gather.masked_gather.launches,
-          seed_cuda.resolve_sa.launches, seed_cuda.seed_scan.launches)
+    n0 = (seed_cuda.seed_lockstep.launches, gather.masked_gather.launches,
+          seed_cuda.resolve_sa.launches, seed_cuda.seed_scan.launches,
+          seed_cuda.seed_lockstep.gathered, seed_cuda.seed_lockstep.stalled,
+          seed_cuda.seed_step.launches)
     got = seeding.find_seeds_all(dfm, queries, stats=stats, **kw)
     assert stats == plain_stats
     for a, b in zip(got, want):
         for x, y in zip(a, b):
             np.testing.assert_array_equal(x, y)
     lock = sa_mode == "pallas" and sa_intv == 1
-    # pallas mode: one seed_step per iteration; else one seed_scan a round
-    assert seed_cuda.seed_step.launches - n0[0] == (
-        sum(stats["scan_iterations"]) if lock else 0)
-    assert seed_cuda.seed_scan.launches - n0[3] == (
-        0 if lock else len(stats["scan_iterations"]))
-    assert (gather.masked_gather.launches > n0[1]) == (sa_mode == "pallas"
-                                                       and sa_intv == 1)
+    # one launch a round: seed_lockstep in pallas mode, else seed_scan;
+    # no launch an iteration, and the gather runs inside seed_lockstep
+    rounds = len(stats["scan_iterations"])
+    assert seed_cuda.seed_lockstep.launches - n0[0] == (rounds if lock else 0)
+    assert seed_cuda.seed_scan.launches - n0[3] == (0 if lock else rounds)
+    assert seed_cuda.seed_step.launches == n0[6]
+    assert gather.masked_gather.launches == n0[1]
+    assert (seed_cuda.seed_lockstep.gathered > n0[4]) == lock
+    assert (seed_cuda.seed_lockstep.stalled > n0[5]) == (lock and K == 2)
     assert (seed_cuda.resolve_sa.launches > n0[2]) == (sa_intv > 1)
 
 
@@ -281,8 +286,8 @@ def scan_cases(dfm, queries, **kw):
 def test_seed_scan_matches_plain_and_lockstep_on_card(card, monkeypatch,
                                                       sa_intv, sensitive,
                                                       cap):
-    """seed_scan against the plain scan and against the lock-step
-    seed_step scan, round by round (a small emit buffer forces overflow
+    """seed_scan against the plain scan and against the seed_lockstep
+    scan, round by round (a small emit buffer forces overflow
     re-scans): equal records and equal final lane state (exits, poison,
     per-lane steps), on all lanes, on one lane and on a lane count that is
     not a multiple of the block's four."""
@@ -300,10 +305,11 @@ def test_seed_scan_matches_plain_and_lockstep_on_card(card, monkeypatch,
             s, e = starts[sub], stops[sub]
             if len(s) == 0:
                 continue
-            n0 = (seed_cuda.seed_scan.launches, seed_cuda.seed_step.launches)
+            n0 = (seed_cuda.seed_scan.launches,
+                  seed_cuda.seed_lockstep.launches)
             st, recs = seeding.scan_lanes(dfm, q_rows, s, e, prm)
             assert seed_cuda.seed_scan.launches == n0[0] + 1
-            assert seed_cuda.seed_step.launches == n0[1]
+            assert seed_cuda.seed_lockstep.launches == n0[1]
             st_p, recs_p = seeding.scan_lanes(dfm, q_rows, s, e, prm,
                                               plain=True)
             np.testing.assert_array_equal(st, st_p)
@@ -311,13 +317,109 @@ def test_seed_scan_matches_plain_and_lockstep_on_card(card, monkeypatch,
             lanes = seeding.ScanLanes.start(s, e, prm.max_out, card)
             n_iter = seeding.scan_lockstep(dfm, q_rows, lanes, prm,
                                            plain=False)
-            assert seed_cuda.seed_step.launches - n0[1] == n_iter \
-                == st[seeding.F_STEPS].max()
+            assert seed_cuda.seed_lockstep.launches == n0[1] + 1
+            assert n_iter == st[seeding.F_STEPS].max()
+            assert lanes.counters.tolist() == [n_iter, 0, 0, 0]
             np.testing.assert_array_equal(lanes.st.cpu().numpy(), st)
             keep = np.arange(prm.max_out)[None, :] \
                 < st[seeding.F_OUT_N][:, None]
             np.testing.assert_array_equal(lanes.out.cpu().numpy()[keep],
                                           recs)
+
+
+def pallas_case(card, K, monkeypatch, seed=11):
+    """(tables, q_rows, starts, stops, prm) of a first scan round in pallas
+    mode with K compaction slots, and the plain lock-step scan's lanes."""
+    import dataclasses
+    monkeypatch.setattr(seeding, "_SA_GATHER_K", K)
+    monkeypatch.delenv("GSALIGN_SA_MODE", raising=False)
+    g, queries = genome_and_queries(seed)
+    dfm = rank.DeviceFMIndex.from_host(build_fmindex(g), card)
+    q_rows, starts, stops, prm = scan_cases(
+        dfm, queries, min_seed_length=12, chunk=150)[0]
+    prm = dataclasses.replace(prm, sa_mode="pallas")
+    plain = seeding.ScanLanes.start(starts, stops, prm.max_out, card)
+    seeding.scan_lockstep(dfm, q_rows, plain, prm, plain=True)
+    return dfm, q_rows, starts, stops, prm, plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,max_blocks", [
+    (512, None), (2, None), (2, 1), (2, 2), (512, 1)])
+def test_seed_lockstep_matches_the_plain_loop_on_card(card, monkeypatch, K,
+                                                      max_blocks):
+    """seed_lockstep in pallas mode against the host loop of the plain
+    step, slots and gather: equal lane state, counters (iterations, live,
+    words gathered, stalls) and records, a warp a lane and with the grid
+    capped so that a warp owns several lanes."""
+    dfm, q_rows, starts, stops, prm, plain = pallas_case(card, K,
+                                                         monkeypatch)
+    assert len(starts) > 20
+    lanes = seeding.ScanLanes.start(starts, stops, prm.max_out, card)
+    n0 = seed_cuda.seed_lockstep.launches
+    st, counters = seed_cuda.seed_lockstep(dfm, q_rows, lanes, prm,
+                                           max_blocks=max_blocks)
+    assert seed_cuda.seed_lockstep.launches == n0 + 1
+    assert torch.equal(lanes.buf, plain.buf)
+    assert torch.equal(lanes.out, plain.out)
+    np.testing.assert_array_equal(st, plain.st.cpu().numpy())
+    assert counters[seeding.C_ITERS] == st[seeding.F_STEPS].max()
+    assert counters[seeding.C_LIVE] == 0
+    assert counters[seeding.C_GATHERED] > 0
+    assert (counters[seeding.C_STALLED] > 0) == (K == 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_blocks", [None, 2])
+def test_seed_lockstep_stops_after_max_iters_on_card(card, monkeypatch,
+                                                     max_blocks):
+    """max_iters = n leaves the state of n plain iterations, and going on
+    from there reaches the plain scan's end; seed_step is one iteration."""
+    dfm, q_rows, starts, stops, prm, plain = pallas_case(card, 2,
+                                                         monkeypatch)
+    part = seeding.ScanLanes.start(starts, stops, prm.max_out, card)
+    seeding.scan_lockstep(dfm, q_rows, part, prm, plain=True, max_iters=7)
+    lanes = seeding.ScanLanes.start(starts, stops, prm.max_out, card)
+    _, counters = seed_cuda.seed_lockstep(dfm, q_rows, lanes, prm,
+                                          max_iters=7, max_blocks=max_blocks)
+    assert counters[seeding.C_ITERS] == 7 and counters[seeding.C_LIVE] > 0
+    assert torch.equal(lanes.buf, part.buf)
+    assert torch.equal(lanes.out, part.out)
+    n0 = (seed_cuda.seed_step.launches, seed_cuda.seed_lockstep.launches)
+    live = seed_cuda.seed_step(dfm, q_rows, lanes, prm)
+    assert (seed_cuda.seed_step.launches, seed_cuda.seed_lockstep.launches) \
+        == (n0[0] + 1, n0[1] + 1)
+    seeding.scan_lockstep(dfm, q_rows, part, prm, plain=True, max_iters=1)
+    assert live == int(part.counters[seeding.C_LIVE]) > 0
+    assert torch.equal(lanes.st, part.st)
+    seed_cuda.seed_lockstep(dfm, q_rows, lanes, prm, max_blocks=max_blocks)
+    assert torch.equal(lanes.st, plain.st)
+    assert torch.equal(lanes.out, plain.out)
+
+
+@pytest.mark.cuda
+def test_seed_lockstep_raises_on_a_grid_the_card_cannot_hold(card,
+                                                             monkeypatch):
+    """A plan for more blocks than are resident at once is refused by the
+    cooperative launch: an error, not a smaller grid."""
+    g, _ = genome_and_queries(5, lens=(60_000,))
+    dfm = rank.DeviceFMIndex.from_host(build_fmindex(g), card)
+    B = 16 * 1024                      # more blocks than any card holds
+    starts = np.arange(B, dtype=np.int64) * 3
+    q_rows = seeding.build_qrows(torch.from_numpy(g.codes_fwd).to(card))
+    prm = seeding.ScanParams(12, 100, False, 4, "pallas")
+    lanes = seeding.ScanLanes.start(starts, starts + 3, prm.max_out, card)
+    monkeypatch.setattr(seed_cuda, "resident_blocks", lambda lib, w: 1 << 20)
+    n0 = seed_cuda.seed_lockstep.launches
+    with pytest.raises(RuntimeError, match="seed_lockstep launch failed"):
+        seed_cuda.seed_lockstep(dfm, q_rows, lanes, prm)
+    assert seed_cuda.seed_lockstep.launches == n0
+    monkeypatch.undo()
+    # the same lanes under the card's own plan: several lanes a warp
+    seed_cuda.seed_lockstep(dfm, q_rows, lanes, prm)
+    want = seeding.ScanLanes.start(starts, starts + 3, prm.max_out, card)
+    seeding.scan_lockstep(dfm, q_rows, want, prm, plain=True)
+    assert torch.equal(lanes.buf, want.buf)
 
 
 @pytest.mark.cuda

@@ -241,3 +241,108 @@ def test_entry_points_take_the_card_by_default_and_raise_without_one(
     assert resolve_device("cpu") == torch.device("cpu")
     assert trank.DeviceFMIndex.from_host(fm, "cpu").device.type == "cpu"
     assert tdp.FragmentAligner(device="cpu").device.type == "cpu"
+
+
+def need_lanes(need, ik1=None):
+    """Lanes whose state makes exactly the lanes of `need` enter direct
+    mode with their SA word to read."""
+    B = len(need)
+    lanes = tseeding.ScanLanes.start(np.zeros(B), np.full(B, 10), 2, "cpu")
+    lanes.st[tseeding.F_PHASE] = torch.from_numpy(need.astype(np.int64))
+    lanes.st[tseeding.F_IK2] = 1
+    if ik1 is not None:
+        lanes.st[tseeding.F_IK1] = torch.from_numpy(ik1)
+    return lanes
+
+
+@pytest.mark.parametrize("K", [1, 8, 512])
+@pytest.mark.parametrize("lanes_per_block", [1, 4, 7])
+def test_blockwise_slot_prefix_equals_sa_slots(lanes_per_block, K):
+    """The slots as the seed_lockstep kernel makes them (per-block counts,
+    their exclusive sum, the rank inside the block) are _sa_slots' slots,
+    for random need vectors of every density and B up to 3,000."""
+    rng = np.random.default_rng(100 * K + lanes_per_block)
+    dfm = trank.DeviceFMIndex.from_host(
+        build_fmindex(genome_of([random_genome(rng, 300)])), "cpu")
+    for B in (1, 2, 5, 31, 460, 1200, 3000):
+        for density in (0.0, 0.02, 0.5, 1.0):
+            need = rng.random(B) < density
+            slot, _ = tseeding._sa_slots(dfm, need_lanes(need), min(K, B),
+                                         lambda table, idx: idx)
+            got = seed_cuda.slots_blockwise(need, lanes_per_block,
+                                            min(K, B))
+            np.testing.assert_array_equal(got, slot.numpy())
+            assert (got >= 0).sum() == min(need.sum(), K, B)
+
+
+def test_sa_slots_gather_reads_the_slot_owners_ranks():
+    """Slot s reads the SA word of the lane that owns it: what each lane
+    reads for itself inside the kernel."""
+    rng = np.random.default_rng(6)
+    dfm = trank.DeviceFMIndex.from_host(
+        build_fmindex(genome_of([random_genome(rng, 500)])), "cpu")
+    B, K = 40, 8
+    need = rng.random(B) < 0.4
+    ik1 = rng.integers(0, dfm.seq_len + 1, B)
+    from gsalign_tpu_torch.ops.gather import masked_gather_plain
+    slot, res_k = tseeding._sa_slots(dfm, need_lanes(need, ik1), K,
+                                     masked_gather_plain)
+    own = slot.numpy() >= 0
+    assert own.sum() == min(need.sum(), K) > 0
+    np.testing.assert_array_equal(
+        res_k.numpy()[slot.numpy()[own]], dfm.sa_rows.numpy()[ik1[own]])
+    assert (res_k.numpy()[own.sum():] == 0).all()
+
+
+@pytest.mark.parametrize("B,staged,bare,max_blocks,want", [
+    (460, 132, 132, None, (29, 1, True)),        # a warp a lane
+    (1200, 132, 132, None, (75, 1, True)),
+    (25_000, 132, 132, None, (131, 12, False)),  # 250 Mb: twelve a warp
+    (1200, 132, 132, 64, (38, 2, False)),        # a capped grid
+    (1200, 0, 132, None, (75, 1, False)),        # a window too large to stage
+    (3, 10, 10, None, (1, 1, True)),
+    (161, 10, 10, 10, (6, 2, False)),
+])
+def test_lockstep_plan_fills_the_grid_in_lane_order(B, staged, bare,
+                                                    max_blocks, want):
+    got = seed_cuda.lockstep_plan(B, staged, bare, max_blocks)
+    assert got == want
+    blocks, per, _ = got
+    assert blocks * seed_cuda._LOCK_WARPS * per >= B
+    assert (blocks - 1) * seed_cuda._LOCK_WARPS * per < B
+    assert blocks <= (max_blocks or max(staged, bare))
+
+
+def test_lockstep_plan_refuses_an_empty_grid():
+    with pytest.raises(ValueError, match="at least one block"):
+        seed_cuda.lockstep_plan(100, 0, 0)
+    with pytest.raises(ValueError, match="at least one block"):
+        seed_cuda.lockstep_plan(100, 10, 10, max_blocks=0)
+
+
+def test_seed_lockstep_wrapper_runs_the_plain_loop_on_cpu(monkeypatch):
+    """On CPU tensors seed_lockstep and seed_step are their plain versions
+    in every SA mode: no launch is counted and no library is built."""
+    monkeypatch.delenv("GSALIGN_SA_MODE", raising=False)
+    monkeypatch.setattr(seed_cuda, "build", lambda: pytest.fail("built"))
+    refs, queries = multi_chromosome_case(5)
+    dfm = trank.DeviceFMIndex.from_host(build_fmindex(genome_of(refs)),
+                                        "cpu")
+    q_rows, starts, stops, prm, st, _ = scan_rounds(
+        dfm, queries, min_seed_length=12, chunk=600)[0]
+    n0 = (seed_cuda.seed_lockstep.launches, seed_cuda.seed_step.launches,
+          seed_cuda.seed_lockstep.gathered)
+    for sa_mode in ("xla", "pallas"):
+        mode = tseeding.ScanParams(**{**prm.__dict__, "sa_mode": sa_mode})
+        lanes = tseeding.ScanLanes.start(starts, stops, prm.max_out, "cpu")
+        got, counters = seed_cuda.seed_lockstep(dfm, q_rows, lanes, mode)
+        np.testing.assert_array_equal(got, st)
+        assert counters[tseeding.C_ITERS] == st[tseeding.F_STEPS].max()
+        assert (counters[tseeding.C_GATHERED] > 0) == (sa_mode == "pallas")
+        lanes = tseeding.ScanLanes.start(starts, stops, prm.max_out, "cpu")
+        assert seed_cuda.seed_step(dfm, q_rows, lanes, mode) == len(starts)
+    assert (seed_cuda.seed_lockstep.launches, seed_cuda.seed_step.launches,
+            seed_cuda.seed_lockstep.gathered) == n0
+    lanes = tseeding.ScanLanes.start([0], [5], 2, "meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        seed_cuda.seed_lockstep(None, None, lanes, None)

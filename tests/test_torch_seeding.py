@@ -249,3 +249,109 @@ def test_sa_slots_compact_in_lane_order():
     slot, _ = tseeding._sa_slots(dfm, lanes, K, fake_gather)
     assert slot.tolist() == [-1, -1, -1, -1, -1, 0, -1]
     assert seen[-1] == [50, -1, -1]
+
+
+_JAX_LOCKSTEP = {}   # K -> (JAX seeds, per-lane finish iterations)
+
+
+@pytest.mark.parametrize("gather_k", [2, 8, 512])
+def test_scan_lockstep_pallas_matches_jax_seeds_and_iterations(monkeypatch,
+                                                               gather_k):
+    """scan_lockstep(plain=True), the plain version of the seed_lockstep
+    kernel, in pallas mode with K slots: the JAX package's seeds under its
+    Pallas gather in interpret mode and, lane for lane, its iteration
+    counts (a near-identical query sends all 25 lanes into direct mode in
+    the same iterations, so K = 8 stalls lanes). The JAX kernel needs
+    K % 8 == 0, so K = 2 is held against its K = 8 seeds and must take
+    more iterations."""
+    rng = np.random.default_rng(78)
+    ref = random_genome(rng, 2500)
+    fm, dfm, jdfm = index_pair([ref])
+    qry = mutate(ref, rng, sub_rate=0.003)
+    kw = dict(min_seed_length=12, max_seed_freq=100, chunk=100)
+    jax_k = max(gather_k, 8)
+    if jax_k not in _JAX_LOCKSTEP:
+        monkeypatch.setenv("GSALIGN_SA_MODE", "pallas_interp")
+        monkeypatch.setattr(jseeding, "_SA_GATHER_K", jax_k)
+        jax.clear_caches()     # _SA_GATHER_K is read at trace time
+        seeds = jseeding.find_seeds_all(jdfm, [qry], **kw)[0]
+        _JAX_LOCKSTEP[jax_k] = (
+            seeds, np.asarray(jseeding._fetch_scan.last_finish_iters))
+        jax.clear_caches()
+    want, want_iters = _JAX_LOCKSTEP[jax_k]
+    monkeypatch.setattr(tseeding, "_SA_GATHER_K", gather_k)
+    monkeypatch.setenv("GSALIGN_SA_MODE", "pallas")
+    rounds, stats = [], {}
+    got = find_seeds_all(dfm, [qry], stats=stats, rounds=rounds, **kw)[0]
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert len(rounds) == 1 and stats["scan_lanes"] == 25
+    q_rows, starts, stops, prm, st, _ = rounds[0]
+    assert prm.sa_mode == "pallas"
+    lanes = tseeding.ScanLanes.start(starts, stops, prm.max_out, "cpu")
+    n_iter = tseeding.scan_lockstep(dfm, q_rows, lanes, prm, plain=True)
+    np.testing.assert_array_equal(lanes.st.numpy(), st)
+    c = lanes.counters.tolist()
+    assert c[tseeding.C_ITERS] == n_iter == stats["scan_iterations"][0]
+    assert c[tseeding.C_LIVE] == 0 and c[tseeding.C_GATHERED] > 0
+    assert (c[tseeding.C_STALLED] > 0) == (gather_k < 25)
+    if gather_k == jax_k:
+        np.testing.assert_array_equal(st[tseeding.F_STEPS], want_iters)
+    else:
+        assert n_iter > want_iters.max()
+
+
+@pytest.mark.parametrize("sa_mode,max_iters", [("pallas", 5), ("xla", 3),
+                                               ("pallas", 1)])
+def test_max_iters_leaves_the_state_of_that_many_plain_steps(monkeypatch,
+                                                             sa_mode,
+                                                             max_iters):
+    """seed_lockstep on CPU tensors runs its plain version: max_iters = n
+    leaves the state, records and counters that n calls of seed_step_plain
+    (after _sa_slots in pallas mode) leave, no launch is counted, and
+    seed_step is one such iteration."""
+    from gsalign_tpu_torch.ops import seed_cuda
+    from gsalign_tpu_torch.ops.gather import masked_gather_plain
+    rng = np.random.default_rng(79)
+    ref = random_genome(rng, 2500)
+    _, dfm, _ = index_pair([ref])
+    qry = mutate(ref, rng, sub_rate=0.003)
+    monkeypatch.setattr(tseeding, "_SA_GATHER_K", 4)
+    monkeypatch.setenv("GSALIGN_SA_MODE", sa_mode)
+    rounds = []
+    find_seeds_all(dfm, [qry], rounds=rounds, min_seed_length=12, chunk=100)
+    q_rows, starts, stops, prm = rounds[0][:4]
+    want = tseeding.ScanLanes.start(starts, stops, prm.max_out, "cpu")
+    gathered = stalled = 0
+    for _ in range(max_iters):
+        slot = res_k = None
+        if sa_mode == "pallas":
+            slot, res_k = tseeding._sa_slots(dfm, want, 4,
+                                             masked_gather_plain)
+            gathered += int((slot >= 0).sum())
+            stalled += int(tseeding._sa_need(want.st).sum()
+                           - (slot >= 0).sum())
+        live = int(tseeding.seed_step_plain(dfm, q_rows, want, prm, slot,
+                                            res_k))
+    lanes = tseeding.ScanLanes.start(starts, stops, prm.max_out, "cpu")
+    n0 = (seed_cuda.seed_lockstep.launches, seed_cuda.seed_step.launches)
+    if max_iters == 1:
+        assert seed_cuda.seed_step(dfm, q_rows, lanes, prm) == live
+        counters = lanes.counters.numpy()
+    else:
+        st, counters = seed_cuda.seed_lockstep(dfm, q_rows, lanes, prm,
+                                               max_iters=max_iters)
+        np.testing.assert_array_equal(st, want.st.numpy())
+    assert (seed_cuda.seed_lockstep.launches,
+            seed_cuda.seed_step.launches) == n0
+    assert torch.equal(lanes.st, want.st)
+    assert torch.equal(lanes.out, want.out)
+    assert counters.tolist() == [max_iters, live, gathered, stalled]
+    assert live > 0
+    # going on from there ends where an uninterrupted scan ends
+    whole = tseeding.ScanLanes.start(starts, stops, prm.max_out, "cpu")
+    n_iter = tseeding.scan_lockstep(dfm, q_rows, whole, prm, plain=True)
+    rest = seed_cuda.seed_lockstep(dfm, q_rows, lanes, prm)[1]
+    assert rest[tseeding.C_ITERS] == n_iter - max_iters
+    assert torch.equal(lanes.st, whole.st)
+    assert torch.equal(lanes.out, whole.out)
