@@ -7,6 +7,8 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py dp         # phases 1 and 2 only (the DP kernels)
     python3 chip_smoke.py dp-sweep   # those, and the DP launch plans timed
     python3 chip_smoke.py seed       # phases 1 and 6 (the seed kernels)
+    python3 chip_smoke.py wide-big   # phase 1, then a 1.08 Gb wide index
+                                     # (2N > 2^31): minutes, tens of GB
 
 Phases (each raises on failure; nothing is caught):
   1. the card (nvidia-smi name and power limit), the torch and CUDA
@@ -27,9 +29,10 @@ Phases (each raises on failure; nothing is caught):
      (the lock-step scan with the slot compaction and the masked gather
      inside it) and no other seed kernel, and must gather SA words;
   5. 12 Mb (yeast scale, make_pair(12_000_000)): align through the CLI in
-     the xla and pallas SA modes and on an sa_intv=8 index built through
-     the API (seed_scan and resolve_sa launched), each with the JAX
-     package's counts and sha256 values;
+     the xla and pallas SA modes, on an sa_intv=8 index and on a
+     forced-wide index (the layout of seq_len >= 2^31; sa_intv 8), both
+     built through the API (seed_scan and resolve_sa launched), each with
+     the JAX package's counts and sha256 values;
   6. the seed-stage kernels against their plain torch versions on the
      card: the stand-alone masked_gather on the 12 Mb sa_rows at K = 512;
      seed_scan at 4.6 Mb and 12 Mb (xla) and on the sa_intv=8 index (equal
@@ -38,11 +41,18 @@ Phases (each raises on failure; nothing is caught):
      mode at 4.6 Mb and in pallas mode at 4.6 Mb and 12 Mb (equal lane
      state, records, iterations, words gathered and stalls; lanes must
      stall at 12 Mb), there also with the grid capped so that a warp owns
-     several lanes; seed_step (seed_lockstep for one iteration) against
-     seed_step_plain iteration by iteration; resolve_sa on every rank the
-     12 Mb sampled run resolves, against the full suffix array too;
+     several lanes, and without slots on the wide index; seed_step
+     (seed_lockstep for one iteration) against seed_step_plain iteration
+     by iteration; seed_scan on the wide index; resolve_sa (16 threads a
+     rank narrow, 32 wide) on every rank the 12 Mb sampled and wide runs
+     resolve, against the full suffix array too;
   7. the seed stage's device operations per scan in both SA modes, under
      torch.profiler.
+wide-big: a 1,080,000,000-base random genome (2N = 2.16e9 > 2^31; the
+JAX package's tests/test_wide_e2e.py), its index built once; a 200 kb
+query seeded (coordinates past 2^31, seeds equal to the text), seed_scan
+and resolve_sa held against their plain versions on that run's lanes and
+ranks, and a mutated 2 Mb slice aligned through compare_genomes.
 Every align run sets the kernels' launch counts to 0 just before it and
 reads them just after. Each kernel's bound is the larger of its bytes over
 the card's memory rate and its operations over the card's integer rate,
@@ -94,8 +104,9 @@ DP_OPS_PER_CELL = 30
 # words). An LF-walk step is one rank.
 RANK_OPS = 32 * 8 + 2 * 16
 STEP_OPS = 100
-ROW_BYTES = 256          # a t3 row, and a row of its major checkpoints
+MAJOR_ROW_BYTES = 256    # a row of a narrow index's major checkpoints
 TEXT_SEG_BYTES = 64      # 256 bases of packed text
+WIDE_BIG_LEN = 1_080_000_000   # genome bases of wide-big: 2N > 2^31
 
 def bound(n_bytes: float, n_ops: float) -> dict:
     """{bound_ms, bound_by} of work that must move n_bytes and do n_ops
@@ -510,16 +521,25 @@ def phase_46mb() -> dict:
     return runs
 
 
-def sampled_index(d: str):
-    """An sa_intv=8 index of d/ref.fa at d/idx8, built through the API:
-    every-8th SA sampling is what build_fmindex picks above 640 M text
-    rows; here it is asked for at 24 M rows."""
+def sampled_indexes(d: str):
+    """Two indexes of d/ref.fa built through the API: an sa_intv=8 one at
+    d/idx8 (every-8th SA sampling is what build_fmindex picks above 640 M
+    text rows; here it is asked for at 24 M rows) and a forced-wide one at
+    d/idxw (the layout of seq_len >= 2^31, which is always sampled every
+    8th row)."""
     from gsalign_tpu_torch.genome.fasta import read_fasta
     from gsalign_tpu_torch.genome.packing import pack_genome
     from gsalign_tpu_torch.index.fmindex import build_fmindex
     from gsalign_tpu_torch.index.io import save_index
-    fm8 = build_fmindex(pack_genome(read_fasta(f"{d}/ref.fa")), sa_intv=8)
-    save_index(fm8, f"{d}/idx8")
+    g = pack_genome(read_fasta(f"{d}/ref.fa"))
+    for idx, kw in (("idx8", dict(sa_intv=8)),
+                    ("idxw", dict(force_wide=True))):
+        t0 = time.time()
+        fm = build_fmindex(g, **kw)
+        save_index(fm, f"{d}/{idx}")
+        layout = "wide" if fm.rank_dtype == np.int64 else "narrow"
+        say(f"[12mb] {idx} ({layout}, sa_intv={fm.sa_intv}) index build "
+            f"{time.time() - t0:.2f} s")
 
 
 def phase_12mb() -> dict:
@@ -529,9 +549,7 @@ def phase_12mb() -> dict:
     t0 = time.time()
     run_cli("index", f"{d}/ref.fa", f"{d}/idx")
     say(f"[12mb] index build {time.time() - t0:.2f} s")
-    t0 = time.time()
-    sampled_index(d)
-    say(f"[12mb] sa_intv=8 index build {time.time() - t0:.2f} s")
+    sampled_indexes(d)
     return {
         "12mb": align_run(
             "12mb", d, f"{d}/idx", EXPECT_12,
@@ -545,6 +563,11 @@ def phase_12mb() -> dict:
                              "resolve_sa")),
         "12mb-sa8": align_run(
             "12mb-sa8", d, f"{d}/idx8", EXPECT_12,
+            must_launch=("dp_small", "seed_scan", "resolve_sa"),
+            must_not_launch=("seed_lockstep", "seed_step",
+                             "masked_gather")),
+        "12mb-wide": align_run(
+            "12mb-wide", d, f"{d}/idxw", EXPECT_12,
             must_launch=("dp_small", "seed_scan", "resolve_sa"),
             must_not_launch=("seed_lockstep", "seed_step",
                              "masked_gather")),
@@ -615,13 +638,24 @@ class Touched:
         return int(self.seen[:-1].sum()) * self.row_bytes
 
 
+def rank_rows(dfm, device):
+    """Touched markers of the t3 rows and of the major-checkpoint rows (a
+    wide index has none: nothing is counted for them)."""
+    t3 = Touched(dfm.t3.shape[0], 4 * dfm.t3.shape[1], device)
+    major = Touched(dfm.t3_major.shape[0],
+                    0 if dfm.wide else MAJOR_ROW_BYTES, device)
+    return t3, major
+
+
 def scan_work(dfm, q_rows, starts, stops, prm) -> dict:
     """The bytes and integer operations that the scan of these lanes (xla
     or none mode) needs, each input read once and each output written
     once. The plain scan runs once more, and before each step the table
     rows its live lanes are about to read are marked: an interval-extension
     step reads the t3 rows (and the major-checkpoint rows) of its two
-    ranks, one row where both fall in one; a direct-compare step reads two
+    ranks, one row where both fall in one (a narrow index's 256-byte rows
+    with their major rows, a wide one's 400-byte rows, which have none); a
+    direct-compare step reads two
     256-base segments of the text, and on entering one SA word; an INIT
     step reads one comb_pairs word (8 bytes a step, at most the table) and
     no rank row. Per lane besides: its query window (code and ambiguity
@@ -632,8 +666,7 @@ def scan_work(dfm, q_rows, starts, stops, prm) -> dict:
     from gsalign_tpu_torch.ops import seeding as sd
     dev = q_rows.device
     lanes = sd.ScanLanes.start(starts, stops, prm.max_out, dev)
-    t3 = Touched(dfm.t3.shape[0], ROW_BYTES, dev)
-    major = Touched(dfm.t3_major.shape[0], ROW_BYTES, dev)
+    t3, major = rank_rows(dfm, dev)
     text = Touched(-(-dfm.seq_len // 256) + 1, TEXT_SEG_BYTES, dev)
     n = torch.zeros(4, dtype=torch.int64, device=dev)  # rank, dir, init, sa
     direct = prm.sa_mode != "none"
@@ -779,8 +812,8 @@ def lockstep_check(tag: str, dfm, case, sa_mode: str, bnd: dict,
     lib = seed_cuda.build()
     plan = seed_cuda.lockstep_plan(
         len(starts), seed_cuda.resident_blocks(
-            lib, seed_cuda._win_words(lanes.max_len)),
-        seed_cuda.resident_blocks(lib, -1), max_blocks)
+            lib, seed_cuda._win_words(lanes.max_len), dfm.wide),
+        seed_cuda.resident_blocks(lib, -1, dfm.wide), max_blocks)
     batch = [fresh() for _ in range(5)]
     todo = iter(batch)
     ms = cuda_ms(lambda: seed_cuda.launch_lockstep(
@@ -881,8 +914,9 @@ def seed_step_check(tag: str, dfm, case, n_iters: int = 64):
 
 def phase_seed_kernels() -> dict:
     """masked_gather, seed_scan, seed_lockstep (as which seed_step is
-    listed) and resolve_sa against their plain torch versions on the card.
-    Returns per-kernel {ms, plain_ms, max_abs_err, bound_ms, bound_by}."""
+    listed) and resolve_sa against their plain torch versions on the card,
+    on narrow and wide indexes. Returns per-kernel {ms, plain_ms,
+    max_abs_err, bound_ms, bound_by}."""
     import torch
     from gsalign_tpu_torch.ops import gather, rank, seed_cuda, seeding
     totals = {}
@@ -946,7 +980,28 @@ def phase_seed_kernels() -> dict:
     seed_step_check("4.6mb", dfm46, case46)
     barrier_cost("4.6mb", dfm46, case46, plain46)
 
-    # resolve_sa: every rank the 12 Mb sampled run resolves
+    # the forced-wide index: seed_scan against its plain version, and
+    # seed_lockstep without slots (the lane-by-lane diffing tool) against
+    # the same plain scan
+    dfmw, qw = load_case("12mb", "idxw")
+    scans["12mb-wide"] = scan_check("12mb-wide", dfmw, qw)
+    res, casew, plainw = scans["12mb-wide"]
+    lockstep_check("12mb-wide", dfmw, casew, "none", res,
+                   plain=(plainw, res["plain_ms"]))
+
+    # resolve_sa: every rank the 12 Mb sampled and wide runs resolve; the
+    # kernels line takes the wide run's
+    resolve_check("12mb-sa8", dfm8, q8, dfm12.host_sa)
+    totals["resolve_sa"] = resolve_check("12mb-wide", dfmw, qw,
+                                         dfm12.host_sa)
+    return totals
+
+
+def hit_ranks_of(dfm, queries):
+    """The ranks that find_seeds_all's hit expansion resolves for
+    `queries` (the first round's hits), int64 on the index's device."""
+    import torch
+    from gsalign_tpu_torch.ops import seeding
     captured = []
     expand = seeding._expand_hits
 
@@ -955,41 +1010,61 @@ def phase_seed_kernels() -> dict:
         return expand(dfm, qs, ls, k0, fr, plain)
     seeding._expand_hits = capture
     try:
-        seeding.find_seeds_all(dfm8, q8)
+        seeding.find_seeds_all(dfm, queries)
     finally:
         seeding._expand_hits = expand
-    k = torch.from_numpy(seeding.hit_ranks(*captured[0])[1]).cuda()
-    got, ms = timed(lambda: seed_cuda.resolve_sa(dfm8, k))
-    plain, plain_ms = timed(lambda: rank.resolve_sa(dfm8, k))
-    full = dfm12.host_sa[k.cpu().numpy()]
-    err = int((got - plain).abs().max()) if k.numel() else 0
-    if err or not np.array_equal(got.cpu().numpy(), full):
-        raise AssertionError("resolve_sa differs from the plain version or "
-                             "from the full suffix array")
-    # the LF steps these ranks need, and the distinct t3 and major rows
-    # they read; the rank in, its sample in and the SA value out
-    t3 = Touched(dfm8.t3.shape[0], ROW_BYTES, k.device)
-    major = Touched(dfm8.t3_major.shape[0], ROW_BYTES, k.device)
-    walk, steps = k.clone(), 0
+    return torch.from_numpy(seeding.hit_ranks(*captured[0])[1]).to(
+        dfm.device)
+
+
+def resolve_check(tag: str, dfm, queries, full_sa=None) -> dict:
+    """resolve_sa on every rank that the run of `queries` resolves,
+    against the plain LF walk and (given) the full suffix array. Times: 20
+    launches queued behind the spin kernel (cuda_ms), and one wrapper call
+    on the host clock (timed). Returns {ms, plain_ms, max_abs_err,
+    bound_ms, bound_by}."""
+    import torch
+    from gsalign_tpu_torch.ops import rank, seed_cuda
+    k = hit_ranks_of(dfm, queries)
+    plain, plain_ms = timed(lambda: rank.resolve_sa(dfm, k))
+    if full_sa is not None and not np.array_equal(plain.cpu().numpy(),
+                                                  full_sa[k.cpu().numpy()]):
+        raise AssertionError(f"resolve_sa {tag}: the plain walk differs "
+                             f"from the full suffix array")
+    # the LF steps these ranks need, and the distinct t3 (and, narrow,
+    # major) rows they read; the rank in, its sample in and the SA value
+    # out
+    t3, major = rank_rows(dfm, k.device)
+    walk, steps, longest = k.clone(), 0, 0
     while True:
-        active = (walk & (dfm8.sa_intv - 1)) != 0
+        active = (walk & (dfm.sa_intv - 1)) != 0
         n_active = int(active.sum())
         if n_active == 0:
             break
         steps += n_active
+        longest += 1
         t3.mark(walk >> 7, active)
         major.mark(walk >> 15, active)
-        walk = torch.where(active, rank.lf_t3(dfm8, walk), walk)
-    n_bytes = t3.bytes() + major.bytes() + k.numel() * (8 + 4 + 8)
+        walk = torch.where(active, rank.lf_t3(dfm, walk), walk)
+    n_bytes = t3.bytes() + major.bytes() + k.numel() * (
+        8 + dfm.sa_samples.element_size() + 8)
     bnd = bound(n_bytes, steps * RANK_OPS)
-    say(f"[kernel] resolve_sa on {k.numel()} ranks of the 12 Mb hits "
-        f"(sa_intv 8, {steps} LF steps)  kernel {ms:.3f} ms  plain "
-        f"{plain_ms:.1f} ms  bound {bnd['bound_ms']:.5f} ms "
-        f"({bnd['bound_by']}: {n_bytes} bytes, {steps * RANK_OPS} "
-        f"operations)  equal to the plain version and to the full SA")
-    totals["resolve_sa"] = {"ms": ms, "plain_ms": plain_ms,
-                            "max_abs_err": err, **bnd}
-    return totals
+    got = seed_cuda.resolve_sa(dfm, k)
+    err = int((got - plain).abs().max()) if k.numel() else 0
+    if err:
+        raise AssertionError(f"resolve_sa {tag} differs from the plain "
+                             f"version")
+    ms = cuda_ms(lambda: seed_cuda.resolve_sa(dfm, k), 20)
+    call_ms = timed(lambda: seed_cuda.resolve_sa(dfm, k))[1]
+    say(f"[kernel] resolve_sa {tag}: {k.numel()} ranks "
+        f"({'wide' if dfm.wide else 'narrow'}, sa_intv {dfm.sa_intv}, "
+        f"{steps} LF steps, longest walk {longest})  kernel {ms:.4f} ms"
+        f" ({100 * bnd['bound_ms'] / ms:.1f} % of the bound; one call "
+        f"{call_ms:.3f} ms)  plain {plain_ms:.1f} ms  bound "
+        f"{bnd['bound_ms']:.5f} ms ({bnd['bound_by']}: {n_bytes} bytes, "
+        f"{steps * RANK_OPS} operations)  equal to the plain version"
+        + ("" if full_sa is None else " and to the full SA"))
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, **bnd}
 
 
 def phase_profile():
@@ -1026,6 +1101,103 @@ def phase_profile():
         for name, (n, us) in sorted(names.items(), key=lambda kv: -kv[1][1]
                                     )[:8]:
             say(f"[profile]   {n:6d} x {us / n:8.2f} us  {name[:90]}")
+
+
+def phase_wide_big():
+    """wide-big: the JAX package's tests/test_wide_e2e.py on the card. A
+    WIDE_BIG_LEN-base random genome (seed 40; 2N > 2^31), its index built
+    once (auto: wide, sa_intv 8); a 200 kb query, the reverse complement of
+    the mutated start of the genome, seeded (its loci lie past 2^31) with
+    seed_scan and resolve_sa held against their plain versions on its lanes
+    and ranks; a mutated 2 Mb slice aligned through compare_genomes."""
+    import resource
+    import torch
+    from gsalign_tpu_torch.config import AlignConfig
+    from gsalign_tpu_torch.genome.packing import Genome
+    from gsalign_tpu_torch.index.fmindex import build_fmindex
+    from gsalign_tpu_torch.ops import seeding
+    from gsalign_tpu_torch.ops.rank import DeviceFMIndex
+    from gsalign_tpu_torch.pipeline.align import compare_genomes
+
+    def rss_gb():
+        return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+
+    def mutate(sl, rng, rate=0.005):
+        out = sl.copy()
+        subs = rng.random(len(out)) < rate
+        out[subs] = (out[subs] + rng.integers(1, 4, subs.sum())) % 4
+        return out.astype(np.uint8)
+    t0 = time.time()
+    rng = np.random.default_rng(40)
+    codes = rng.integers(0, 4, WIDE_BIG_LEN, dtype=np.int64).astype(np.uint8)
+    g = Genome(names=["big1"], lengths=np.asarray([WIDE_BIG_LEN]),
+               offsets=np.asarray([0]), holes=[], codes_fwd=codes)
+    say(f"[wide-big] genome of {WIDE_BIG_LEN} bases made in "
+        f"{time.time() - t0:.1f} s")
+    t0 = time.time()
+    fm = build_fmindex(g)
+    say(f"[wide-big] index build ({fm.seq_len} text rows, sa_intv "
+        f"{fm.sa_intv}, {np.dtype(fm.rank_dtype).name} ranks): "
+        f"{time.time() - t0:.1f} s, peak RSS {rss_gb():.1f} GB")
+    if not (fm.seq_len > 2 ** 31 and fm.rank_dtype == np.int64):
+        raise AssertionError("wide-big: the index is not wide")
+    t0 = time.time()
+    tabs = DeviceFMIndex.host_tables(fm)
+    t1 = time.time()
+    dfm = DeviceFMIndex.from_tables(tabs, None, fm.seq_len, fm.primary,
+                                    device=torch.device("cuda"))
+    torch.cuda.synchronize()
+    del tabs
+    n_bytes = sum(v.numel() * v.element_size() for v in vars(dfm).values()
+                  if isinstance(v, torch.Tensor))
+    say(f"[tables] wide-big: host layout (host_tables) {t1 - t0:.2f} s + "
+        f"upload (from_tables) {time.time() - t1:.2f} s; device tables "
+        f"{n_bytes} bytes ({n_bytes / 2 ** 30:.2f} GiB); peak RSS "
+        f"{rss_gb():.1f} GB")
+
+    # seeds of the reverse complement of the genome's mutated start
+    sl = mutate(codes[:200_000], np.random.default_rng(7))
+    qry = (3 - sl[::-1]).astype(np.uint8)
+    seeding.find_seeds_all(dfm, [qry])                      # warm
+    torch.cuda.synchronize()
+    t0 = time.time()
+    q_pos, r_pos, length = seeding.find_seeds_all(dfm, [qry])[0]
+    seed_s = time.time() - t0
+    text = fm.genome.codes_fwd_rc()
+    for i in np.random.default_rng(1).integers(0, len(q_pos), 20):
+        qp, rp, ln = int(q_pos[i]), int(r_pos[i]), int(length[i])
+        if not np.array_equal(qry[qp:qp + ln], text[rp:rp + ln]):
+            raise AssertionError(f"wide-big: seed {i} differs from the text")
+    if len(q_pos) <= 100 or not (r_pos >= 2 ** 31).any():
+        raise AssertionError(f"wide-big: {len(q_pos)} seeds, none past "
+                             f"2^31")
+    say(f"[wide-big] 200 kb query: {len(q_pos)} seeds, "
+        f"{int((r_pos >= 2 ** 31).sum())} of them at text positions >= 2^31 "
+        f"(largest {int(r_pos.max())}); 20 checked against the text; seed "
+        f"stage {seed_s:.3f} s")
+    scan_check("wide-big", dfm, [qry])
+    resolve_check("wide-big", dfm, [qry])
+    del dfm
+    torch.cuda.empty_cache()
+
+    # a mutated 2 Mb slice through the whole pipeline
+    sl = mutate(codes[500_000_000:502_000_000], np.random.default_rng(11))
+    records = [("slice_m", np.frombuffer(b"ACGT", dtype=np.uint8)[sl])]
+    os.makedirs(WORK, exist_ok=True)
+    t0 = time.time()
+    stats, collector, _ = compare_genomes(
+        fm, records, AlignConfig(), output_prefix=f"{WORK}/wide_e2e",
+        verbose=False, device=torch.device("cuda"))
+    wall = time.time() - t0
+    stages = " ".join(f"{k}={v:.2f}s" for k, v in stats.stage_times.items())
+    say(f"[wide-big] 2 Mb slice: align wall {wall:.1f} s (DeviceFMIndex."
+        f"from_host included; stages {stages}), {stats.local_alignment_num} "
+        f"alignments, ANI {stats.ani:.2f}, {collector.n_snv} SNVs; peak RSS "
+        f"{rss_gb():.1f} GB")
+    if not (stats.local_alignment_num >= 1 and stats.ani > 98.5
+            and collector.n_snv > 5000):
+        raise AssertionError("wide-big: the 2 Mb slice did not align as the "
+                             "JAX package's test requires")
 
 
 def phase_sweep():
@@ -1107,6 +1279,15 @@ def main() -> int:
         if sys.argv[1] == "dp-sweep":
             phase_sweep()
         return 0
+    if sys.argv[1:] == ["wide-big"]:
+        # a genome with 2N > 2^31 on its wide index: tens of GB of host
+        # memory and minutes of build. No result lines.
+        try:
+            phase_card()
+            phase_wide_big()
+        finally:
+            shutil.rmtree(WORK, ignore_errors=True)
+        return 0
     if sys.argv[1:] == ["seed"]:
         # the seed-stage kernels alone: build, the 4.6 Mb and 12 Mb data
         # and indexes, kernel against plain. No result lines.
@@ -1115,7 +1296,7 @@ def main() -> int:
             for tag, n in (("4.6mb", 4_600_000), ("12mb", 12_000_000)):
                 run_cli("index", f"{make_data(tag, n)}/ref.fa",
                         f"{WORK}/{tag}/idx")
-            sampled_index(f"{WORK}/12mb")
+            sampled_indexes(f"{WORK}/12mb")
             phase_seed_kernels()
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
@@ -1167,8 +1348,9 @@ def main() -> int:
         entry("seed_step", "seed.cu", "gsalign_tpu/ops/seeding.py:221",
               pallas["launches"]["seed_lockstep"], kernel="seed_lockstep",
               lanes_stalled=pallas["stalled"]),
+        # the slice's main path for resolve_sa: the forced-wide 12 Mb run
         entry("resolve_sa", "seed.cu", "gsalign_tpu/ops/rank.py:625",
-              runs["12mb-sa8"]["launches"]["resolve_sa"]),
+              runs["12mb-wide"]["launches"]["resolve_sa"]),
     ]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

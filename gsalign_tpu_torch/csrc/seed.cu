@@ -22,7 +22,19 @@
 //                  the lane-by-lane diffing tool.
 //   resolve_sa  <- gsalign_tpu/ops/rank.py resolve_sa (with lf_t3), the
 //                  LF walk of sampled-SA indexes, an XLA while_loop on the
-//                  TPU. One thread per rank, walking to its sampled row.
+//                  TPU. A group of G threads a rank: 16 on narrow rows,
+//                  32 on wide (the faster of 8, 16 and 32 on an H100 for
+//                  each layout).
+//   occ_rows    <- rank.occ_t3 over given ranks, the row decode alone: not
+//                  on any path; the tests hold it against the plain occ_t3
+//                  on rows whose checkpoints no small genome reaches.
+//
+// Two t3 row layouts (ops/rank.py): narrow, 64 words plus a major row every
+// 256 rows, and wide (seq_len >= 2^31), 100 words of u32 low checkpoints,
+// 2-bit carries and symbols, no major rows. Both are a policy (NarrowRows,
+// WideRows) of ONE row decode (RowGroup): a group of threads reads a rank's
+// row region by region and each counts its words; the scans' occ_pair (a
+// warp) and resolve_sa (a group of G) call it, so they cannot drift apart.
 //
 // Each is held against its plain torch version: seed_scan against
 // ops/seeding.seed_scan_plain, seed_lockstep against the host loop
@@ -43,12 +55,13 @@
 //     launch and one synchronising read-back per step);
 //   - a warp per lane: lanes of different length never share a warp, a
 //     finished warp leaves, and hundreds of lanes fill the SMs. A rank row
-//     is one coalesced load (thread j takes minor word j and symbol word
-//     j), counted by one popcount per thread and one warp reduction; the
-//     16 checkpoint classes of a single-class rank go to 16 threads; the
-//     two ranks of a step are issued together and share a row when they
-//     fall into one; the 256-base compare is 16 words on 16 threads, a
-//     ballot and a find-first-set;
+//     is read by the row decode below with the warp as its group (thread j
+//     takes word j of each 32-word region: narrow, minor word j, symbol
+//     word j and major words j and j + 32), counted by one popcount and a
+//     few adds per thread and one warp sum; the two ranks of a step are
+//     issued together and share a row when they fall into one; the
+//     256-base compare is 16 words on 16 threads, a ballot and a
+//     find-first-set;
 //   - fewer dependent reads: the lane's query window (code and ambiguity
 //     words of its chunk plus the compare's lookahead) is staged once into
 //     shared memory, with the 136 class rows of comb_pairs, init_corr and
@@ -71,14 +84,25 @@
 //     the lanes outnumber the warps the card holds at once, a warp owns a
 //     run of consecutive lanes and steps each once an iteration, with their
 //     state in the state tensor and query words read from q_rows.
-// An LF-walk step of resolve_sa is two dependent reads (a t3 row, then its
-// major row), up to sa_intv - 1 steps on average.
+// resolve_sa: a rank's walk is about sa_intv - 1 LF steps on average, with
+// a tail, each a rank query whose row address comes out of the step
+// before; it too is bound by the latency of dependent reads, not by bytes
+// (a 256- or 400-byte row a step) nor operations. A thread a rank would
+// take two dependent round trips a step (one read for the char, then the
+// row word by word) and scatter its warp's reads over 32 rows. Here a
+// group of G threads takes a rank: the group reads the row and, narrow,
+// its major row in one round trip (both are addressed by k alone), the
+// char comes out of the symbol word one thread holds (a shuffle), each
+// thread counts its words and the group sums them. Groups of one warp walk
+// to different depths, so every shuffle names the group's own mask: a
+// finished group never holds a live one.
 //
 // uint32 shifts by 32 are undefined in C++ (the torch version relies on
 // int64 shifts clearing the word), so word extraction special-cases a zero
 // bit offset and the rank mask skips bytes that keep nothing.
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -117,6 +141,9 @@ struct SeedArgs {
   // grid blocks; consecutive lanes a warp (1: state in registers and the
   // query window staged in shared memory)
   i64 gather_k, max_iters, blocks, lanes_per_warp;
+  // the row layout (0 narrow, 1 wide); in comb_pairs, the first INIT-order
+  // row and (wide) the offset of the sz plane from the lo plane
+  i64 wide, comb_init_off, comb_half;
 };
 
 // Must match ops/seed_cuda._ResolveArgs field for field.
@@ -126,10 +153,25 @@ struct ResolveArgs {
   const i64* t3_exc_pos;
   const i64* t3_exc_chr;
   const i64* l2;           // [5]
-  const int32_t* sa;       // sa_samples (or sa_rows when sa_intv == 1)
+  const int32_t* sa;       // narrow: sa_samples (or sa_rows, sa_intv == 1)
+  const i64* sa64;         // wide: sa_samples
   const i64* k;            // [n] ranks in
   i64* out;                // [n] SA values out
   i64 n, primary, seq_len, sa_intv;
+  i64 wide;                // row layout (0 narrow, 1 wide)
+};
+
+// Must match ops/seed_cuda._OccArgs field for field.
+struct OccArgs {
+  const u32* t3;
+  const int32_t* t3_major;
+  const i64* t3_exc_pos;
+  const i64* t3_exc_chr;
+  const i64* k;            // [n] ranks
+  const i64* cls;          // [n] classes (< 64 triple, < 4 single)
+  const i64* triple;       // [n] 1: triple mode
+  i64* out;                // [n] strict ranks out
+  i64 n, wide;
 };
 
 namespace {
@@ -137,7 +179,7 @@ namespace {
 constexpr i64 kPhaseInit = 0, kPhaseExt = 1;
 constexpr i64 kPoisonNone = 0x7FFFFFFF;
 constexpr i64 kCombTail = 65536;        // first of the 136 class rows
-constexpr i64 kInitOff = 65536 + 136;   // ops/rank.INIT_OFF
+constexpr int kClassRows = 136;
 // SA modes, as ops/seeding.SA_MODES; "xla" (1) reads sa_rows directly
 constexpr int kModeNone = 0, kModePallas = 2;
 constexpr unsigned kFull = 0xFFFFFFFFu;
@@ -145,11 +187,7 @@ constexpr int kScanWarps = 4;           // lanes (warps) per seed_scan block
 // warps per seed_lockstep block: the grid barrier costs more the more blocks
 // arrive at it, so its blocks are large (one block an SM)
 constexpr int kLockWarps = 16;
-// the scans' shared 64-bit words before the query windows: the comb_pairs
-// class rows, init_corr, t3_exc_pos, t3_exc_chr; seed_lockstep adds its
-// warps' counts, one word a warp for each parity of the iteration
-constexpr int kScanHead = 136 + 12 + 3 + 3;
-constexpr int kLockHead = kScanHead + 2 * kLockWarps;
+constexpr int kResolveThreads = 256;    // threads a resolve_sa block
 // rows of seed_lockstep's counters, as ops/seeding.C_*
 enum { C_ITERS, C_LIVE, C_GATHERED, C_STALLED };
 
@@ -213,11 +251,6 @@ __device__ __forceinline__ u32 word_at(const u32* row, int off, int j) {
   return (a << sh) | (row[ow + 1] >> (32 - sh));
 }
 
-// u16 minor checkpoint of class j out of its packed word
-__device__ __forceinline__ u32 minor_of(u32 word, int j) {
-  return (word >> ((j & 1) * 16)) & 0xFFFF;
-}
-
 // Symbols of class `cls` among the first `keep` (0..4) bytes of a symbol
 // word: whole 8-bit symbols in triple mode, their low two bits otherwise.
 __device__ __forceinline__ int sym_count(u32 sym, int keep, int cls,
@@ -253,25 +286,169 @@ __device__ __forceinline__ int exc_corr(const i64* exc_pos,
   return triple ? -zero_cls * nbelow : -zero_cls * nbelow + chr_match;
 }
 
-// Single-class STRICT rank over the order-3 table (ops/rank.occ_t3), by
-// one thread: triple mode counts 8-bit symbols == cls (cls < 64) in
-// T3[0, k); single mode counts rows whose preceding char is cls (cls < 4).
-__device__ i64 occ_t3(const u32* t3, const int32_t* t3_major,
-                      const i64* exc_pos, const i64* exc_chr, i64 k,
-                      bool triple, int cls) {
-  const u32* row = t3 + (k >> 7) * 64;
-  const int32_t* mrow = t3_major + (k >> 15) * 64;
-  i64 cp = 0;
-  if (triple) {
-    cp = mrow[cls] + minor_of(row[cls >> 1], cls);
-  } else {
-    for (int j = cls; j < 64; j += 4) cp += mrow[j] + minor_of(row[j >> 1], j);
+// ---- the row decode ----
+// A rank query's row is read by a group of G threads (8, 16 or 32) as
+// regions of 32 words: thread t of the group takes V = 32 / G consecutive
+// words of each region (one 128 / G-byte load, the group's together one
+// coalesced 128-byte read), so every thread does the same kind of work at
+// the same point and the group counts a region in V words a thread. The
+// whole row is read even where the query's class is known (occ_pair): a
+// load only of the words the query counts ran 0-10 % slower on an H100
+// (PERF.md). kGroup is resolve_sa's G for the layout (occ_pair's is the
+// warp).
+// Narrow: the row's minor region (u16 checkpoints of classes 2w, 2w + 1 in
+// word w), its symbol region, and the two regions of its major row
+// (classes 32 i + w). Wide: the two regions of u32 low checkpoints
+// (classes 32 i + w), the 4 carry words (bits 32-33 of class 16 w + f in
+// field f of word w), the symbol region.
+struct NarrowRows {
+  static constexpr bool kWide = false;
+  static constexpr int kWords = 64;       // u32 words a t3 row
+  static constexpr int kSym = 32;         // first symbol word
+  static constexpr int kCombRows = kClassRows;   // class rows staged
+  static constexpr int kGroup = 16;
+};
+struct WideRows {
+  static constexpr bool kWide = true;
+  static constexpr int kWords = 100;
+  static constexpr int kSym = 68;
+  static constexpr int kCarry = 64;       // first carry word
+  static constexpr int kCombRows = 2 * kClassRows;   // lo and sz planes
+  static constexpr int kGroup = 32;
+};
+
+// The scans' shared 64-bit words before the query windows (kScanHead):
+// the comb_pairs class rows (both planes on a wide index), init_corr,
+// t3_exc_pos, t3_exc_chr; seed_lockstep adds its warps' counts, one word a
+// warp for each parity of the iteration (kLockHead).
+template <class Rows>
+struct Heads {
+  static constexpr int kScanHead = Rows::kCombRows + 12 + 3 + 3;
+  static constexpr int kLockHead = kScanHead + 2 * kLockWarps;
+};
+
+// V consecutive words by one load (V = 1, 2 or 4; p aligned to 4 V bytes).
+template <int V>
+struct Words {
+  u32 w[V];
+  __device__ __forceinline__ void load(const u32* p) {
+    if constexpr (V == 4) {
+      const uint4 v = *reinterpret_cast<const uint4*>(p);
+      w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+    } else if constexpr (V == 2) {
+      const uint2 v = *reinterpret_cast<const uint2*>(p);
+      w[0] = v.x; w[1] = v.y;
+    } else {
+      w[0] = *p;
+    }
   }
-  const int m = static_cast<int>(k & 127);
-  int cnt = 0;
-  for (int j = 0; 4 * j < m; ++j)
-    cnt += sym_count(row[32 + j], m - 4 * j, cls, triple);
-  return cp + cnt + exc_corr(exc_pos, exc_chr, k, triple, cls);
+};
+
+// Whether checkpoint class j counts for the query: the class itself in
+// triple mode, every j with j & 3 == cls in single mode.
+__device__ __forceinline__ bool wanted(int j, int cls, bool triple) {
+  return triple ? j == cls : (j & 3) == cls;
+}
+
+// The sum of the 2-bit carries of the wanted classes in carry word w
+// (classes 16 w .. 16 w + 15 in fields 0..15): the field at 2 (cls & 15)
+// of word cls >> 4 (triple), or those at 2 cls + 8 i of every word (single).
+__device__ __forceinline__ int carry_sum(u32 word, int w, int cls,
+                                         bool triple) {
+  u32 keep;
+  if (triple) keep = (cls >> 4) == w ? 3u << (2 * (cls & 15)) : 0u;
+  else keep = 0x03030303u << (2 * cls);
+  const u32 x = word & keep;
+  return __popc(x & 0x55555555u) + 2 * __popc(x & 0xAAAAAAAAu);
+}
+
+template <class Rows, int G>
+struct RowGroup {
+  static constexpr int V = 32 / G;
+  Words<V> cp[2];      // major (narrow) or low checkpoint (wide) regions
+  Words<V> minor;      // narrow: the minor region; wide: the carry words
+  Words<V> sym;        // the symbol region
+
+  // Rank k's row, the words thread t of the group holds: one round trip
+  // of independent loads (addresses in int64: a wide table passes 2^32
+  // words).
+  __device__ __forceinline__ void load(const u32* t3, const int32_t* major,
+                                       i64 k, int t) {
+    const u32* row = t3 + (k >> 7) * Rows::kWords;
+    const int o = t * V;
+    if constexpr (Rows::kWide) {
+      cp[0].load(row + o);
+      cp[1].load(row + 32 + o);
+      if (o < 4) minor.load(row + Rows::kCarry + o);
+    } else {
+      const u32* mrow = reinterpret_cast<const u32*>(major) + (k >> 15) * 64;
+      cp[0].load(mrow + o);
+      cp[1].load(mrow + 32 + o);
+      minor.load(row + o);
+    }
+    sym.load(row + Rows::kSym + o);
+  }
+
+  // This thread's share of the strict rank of class cls at in-row offset
+  // m = k & 127, without the exception correction: its checkpoint classes
+  // and the symbols of its symbol words among the first m. Summed in 32
+  // bits on a narrow index, whose ranks stay below 2^31; in 64 on a wide
+  // one (a low word plus its carry shifted to bit 32).
+  __device__ __forceinline__ i64 part(int t, int m, int cls,
+                                      bool triple) const {
+    using Acc = typename std::conditional<Rows::kWide, i64, u32>::type;
+    const int o = t * V;
+    Acc sum = 0;
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (wanted(32 * i + o + e, cls, triple)) sum += cp[i].w[e];
+      if constexpr (Rows::kWide) {
+        if (o + e < 4)
+          sum += static_cast<i64>(carry_sum(minor.w[e], o + e, cls, triple))
+                 << 32;
+      } else {
+        const int j = 2 * (o + e);
+        if (wanted(j, cls, triple)) sum += minor.w[e] & 0xFFFF;
+        if (wanted(j + 1, cls, triple)) sum += minor.w[e] >> 16;
+      }
+      sum += sym_count(sym.w[e], m - 4 * (o + e), cls, triple);
+    }
+    return static_cast<i64>(sum);
+  }
+
+  // Symbol word w (0..31) of the row, from the thread that holds it.
+  __device__ __forceinline__ u32 sym_word(unsigned mask, int lane0,
+                                          int w) const {
+    u32 mine = sym.w[0];
+#pragma unroll
+    for (int e = 1; e < V; ++e)
+      if ((w & (V - 1)) == e) mine = sym.w[e];
+    return __shfl_sync(mask, mine, lane0 + w / V);
+  }
+};
+
+// The group's sum of its parts. A narrow rank stays below 2^31, so one
+// 32-bit reduction is exact; a wide one passes 2^32 and is summed in 64
+// bits, a shuffle tree over the group.
+template <class Rows, int G>
+__device__ __forceinline__ i64 group_sum(unsigned mask, i64 part) {
+  if constexpr (!Rows::kWide) {
+    return static_cast<i64>(
+        __reduce_add_sync(mask, static_cast<u32>(part)));
+  } else {
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1)
+      part += __shfl_xor_sync(mask, part, off);
+    return part;
+  }
+}
+
+// The mask of the G-thread group that holds lane `lane` of a warp.
+template <int G>
+__device__ __forceinline__ unsigned group_mask(int lane) {
+  return G == 32 ? kFull : ((1u << G) - 1u) << (lane & ~(G - 1));
 }
 
 // First mismatch of 16 compare words: given this word's mismatch mask
@@ -283,11 +460,14 @@ __device__ __forceinline__ u32 mismatch_mask(u32 tw, u32 qw, u32 aw) {
 
 // ---- the scans' memory policy: a warp, the small tables in shared
 // memory, rank rows and text rows by coalesced loads; the lane's query
-// window in shared memory too (kStaged) or read from q_rows ----
-template <bool kStaged>
+// window in shared memory too (kStaged) or read from q_rows; the rank rows
+// in the layout Rows ----
+template <bool kStaged, class Rows>
 struct WarpMem {
   const SeedArgs& a;
-  const u64* comb_tail;    // shared: comb_pairs[kCombTail .. +136)
+  // shared: comb_pairs' 136 class rows (packed lo | sz << 32), or on a
+  // wide index their lo plane then their sz plane
+  const u64* comb_tail;
   const i64* corr;         // shared: init_corr[12]
   const i64* exc_pos;      // shared: t3_exc_pos[3]
   const i64* exc_chr;      // shared: t3_exc_chr[3]
@@ -308,50 +488,49 @@ struct WarpMem {
       return word_at(a.q_rows + (look >> 8) * 64 + plane * 32,
                      static_cast<int>(look & 255), j);
   }
-  __device__ __forceinline__ u64 comb(i64 row) const {
-    if (row >= kCombTail && row < kInitOff) return comb_tail[row - kCombTail];
-    return static_cast<u64>(a.comb_pairs[row]);
+  // (lo, sz) of class row `row` (INIT-8 rows below kCombTail, then the
+  // class rows), or with `init` of the INIT-order row of k-mer g (its sz
+  // is starts[g + 1]). Wide: two reads, in the lo and the sz plane, or
+  // starts[g] and starts[g + 1].
+  __device__ __forceinline__ void comb(i64 row, bool init, i64 g, i64& lo,
+                                       i64& sz) const {
+    const bool tail = !init && row >= kCombTail;
+    if constexpr (Rows::kWide) {
+      if (tail) {
+        lo = static_cast<i64>(comb_tail[row - kCombTail]);
+        sz = static_cast<i64>(comb_tail[kClassRows + row - kCombTail]);
+      } else {
+        const i64 r = init ? a.comb_init_off + g : row;
+        lo = a.comb_pairs[r];
+        sz = a.comb_pairs[init ? r + 1 : r + a.comb_half];
+      }
+    } else {
+      const u64 v = tail ? comb_tail[row - kCombTail]
+                         : static_cast<u64>(
+                               a.comb_pairs[init ? a.comb_init_off + g : row]);
+      lo = static_cast<i64>(v & 0xFFFFFFFFull);
+      sz = static_cast<i64>(v >> 32);
+    }
   }
   __device__ __forceinline__ int corr_n(i64 cls_init) const {
     int n = 0;
     for (int i = 0; i < 12; ++i) n += corr[i] == cls_init;
     return n;
   }
-  // Both ranks of a step together: thread j holds minor word j and symbol
-  // word j of each row; threads 0..15 (thread 0 in triple mode) add their
-  // checkpoint classes; one warp sum per rank.
+  // Both ranks of a step together, by the row decode over the warp: one
+  // row's words a thread (and a second row's where kb falls in another),
+  // one group sum a rank.
   __device__ __forceinline__ void occ_pair(i64 ka, i64 kb, bool triple,
                                            int cls, i64& tk, i64& tl) const {
-    const i64 ra = ka >> 7, rb = kb >> 7;
-    const u32* row_a = a.t3 + ra * 64;
-    const u32 min_a = row_a[t], sym_a = row_a[32 + t];
-    u32 min_b = min_a, sym_b = sym_a;
-    if (rb != ra) {                       // uniform across the warp
-      const u32* row_b = a.t3 + rb * 64;
-      min_b = row_b[t];
-      sym_b = row_b[32 + t];
-    }
-    const int j = triple ? cls : cls + 4 * (t & 15);   // my class, < 64
-    const bool has_cp = triple ? t == 0 : t < 16;
-    u32 maj_a = 0, maj_b = 0;
-    if (has_cp) {
-      maj_a = static_cast<u32>(a.t3_major[(ka >> 15) * 64 + j]);
-      maj_b = static_cast<u32>(a.t3_major[(kb >> 15) * 64 + j]);
-    }
-    const u32 mw_a = __shfl_sync(kFull, min_a, j >> 1);
-    const u32 mw_b = __shfl_sync(kFull, min_b, j >> 1);
-    u32 part_a = sym_count(sym_a, static_cast<int>(ka & 127) - 4 * t, cls,
-                           triple);
-    u32 part_b = sym_count(sym_b, static_cast<int>(kb & 127) - 4 * t, cls,
-                           triple);
-    if (has_cp) {
-      part_a += maj_a + minor_of(mw_a, j);
-      part_b += maj_b + minor_of(mw_b, j);
-    }
-    // ranks of a narrow index stay below 2^31: the 32-bit sums are exact
-    tk = static_cast<i64>(__reduce_add_sync(kFull, part_a)) +
+    RowGroup<Rows, 32> ra, rb;
+    ra.load(a.t3, a.t3_major, ka, t);
+    if ((kb >> 7) != (ka >> 7)) rb.load(a.t3, a.t3_major, kb, t);   // uniform
+    else rb = ra;
+    tk = group_sum<Rows, 32>(
+             kFull, ra.part(t, static_cast<int>(ka & 127), cls, triple)) +
          exc_corr(exc_pos, exc_chr, ka, triple, cls);
-    tl = static_cast<i64>(__reduce_add_sync(kFull, part_b)) +
+    tl = group_sum<Rows, 32>(
+             kFull, rb.part(t, static_cast<int>(kb & 127), cls, triple)) +
          exc_corr(exc_pos, exc_chr, kb, triple, cls);
   }
   // 16 compare words on 16 threads (the upper half-warp repeats them); 17
@@ -421,15 +600,12 @@ __device__ __forceinline__ void lane_step(Lane& s, const SeedArgs& a,
   const int cls = can3 ? cls3 : cls1;
 
   const i64 i3 = kCombTail + cls3, i1 = kCombTail + 64 + (3 - cls1);
-  const i64 row_idx =
-      in_init ? (init_can12  ? kInitOff + cls_init
-                 : init_can8 ? cls8
-                 : init_can3 ? i3
-                             : i1)
-              : (can3 ? i3 : i1);
-  const u64 v = m.comb(row_idx);
-  const i64 sel_a = static_cast<i64>(v & 0xFFFFFFFFull);
-  const i64 sel_b = static_cast<i64>(v >> 32);
+  const i64 row_idx = in_init ? (init_can8   ? cls8
+                                 : init_can3 ? i3
+                                             : i1)
+                              : (can3 ? i3 : i1);
+  i64 sel_a, sel_b;
+  m.comb(row_idx, in_init && init_can12, cls_init, sel_a, sel_b);
   const i64 init_sz =
       init_can12 ? sel_b - sel_a - m.corr_n(cls_init) : sel_b;
 
@@ -545,13 +721,18 @@ struct SharedTables {
   i64 *corr, *exc_pos, *exc_chr;
 };
 
+template <class Rows>
 __device__ __forceinline__ SharedTables stage_tables(const SeedArgs& a,
                                                      u64* shared64) {
-  const SharedTables s{shared64, reinterpret_cast<i64*>(shared64 + 136),
-                       reinterpret_cast<i64*>(shared64 + 136 + 12),
-                       reinterpret_cast<i64*>(shared64 + 136 + 12 + 3)};
-  for (int i = threadIdx.x; i < 136; i += blockDim.x)
-    s.comb_tail[i] = static_cast<u64>(a.comb_pairs[kCombTail + i]);
+  constexpr int n = Rows::kCombRows;
+  const SharedTables s{shared64, reinterpret_cast<i64*>(shared64 + n),
+                       reinterpret_cast<i64*>(shared64 + n + 12),
+                       reinterpret_cast<i64*>(shared64 + n + 12 + 3)};
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    // the wide sz plane's class rows follow its lo plane's
+    const i64 plane = i < kClassRows ? 0 : a.comb_half - kClassRows;
+    s.comb_tail[i] = static_cast<u64>(a.comb_pairs[kCombTail + plane + i]);
+  }
   if (threadIdx.x < 12) s.corr[threadIdx.x] = a.init_corr[threadIdx.x];
   if (threadIdx.x < 3) {
     s.exc_pos[threadIdx.x] = a.t3_exc_pos[threadIdx.x];
@@ -579,25 +760,26 @@ __device__ __forceinline__ i64 stage_window(const SeedArgs& a, u32* win,
 }
 
 // Every lane to its end, a warp per lane. Dynamic shared memory:
-// kScanHead 64-bit words, then per warp 2 * win_words 32-bit words. A lane
-// that would take more than step_cap steps stops with F_STEPS = -1, which
-// the wrapper turns into an exception.
+// Heads::kScanHead 64-bit words, then per warp 2 * win_words 32-bit words.
+// A lane that would take more than step_cap steps stops with F_STEPS = -1,
+// which the wrapper turns into an exception.
+template <class Rows>
 __global__ void __launch_bounds__(kScanWarps * 32)
 seed_scan_kernel(const SeedArgs a) {
   u64* shared64 = seeddev::dyn_smem64();
   // the only block-wide barrier: warps part after it
-  const SharedTables tb = stage_tables(a, shared64);
+  const SharedTables tb = stage_tables<Rows>(a, shared64);
 
   const int warp = threadIdx.x >> 5, t = threadIdx.x & 31;
   const i64 b = static_cast<i64>(blockIdx.x) * kScanWarps + warp;
   if (b >= a.B) return;
   const i64 start = a.starts[b], stop = a.stops[b];
-  u32* win = reinterpret_cast<u32*>(shared64 + kScanHead) +
+  u32* win = reinterpret_cast<u32*>(shared64 + Heads<Rows>::kScanHead) +
              static_cast<i64>(warp) * 2 * a.win_words;
   const i64 base = stage_window(a, win, start, t);
 
-  const WarpMem<true> m{a, tb.comb_tail, tb.corr, tb.exc_pos, tb.exc_chr,
-                        win, base, t, false, 0};
+  const WarpMem<true, Rows> m{a, tb.comb_tail, tb.corr, tb.exc_pos,
+                              tb.exc_chr, win, base, t, false, 0};
   Lane s;
   load_lane(s, a.state, a.B, b);
   while (lane_live(s, stop)) {
@@ -621,9 +803,9 @@ __device__ __forceinline__ bool lane_needs_sa(const Lane& s) {
 // needed an SA word before this one, in lane order (cumsum(need) - 1 of the
 // host loop); the first gather_k of an iteration get a slot, the others
 // stall: their step moves nothing and is counted all the same.
-template <bool kStaged>
+template <class Mem>
 __device__ __forceinline__ void lockstep_lane(Lane& s, const SeedArgs& a,
-                                              WarpMem<kStaged>& m, i64 b,
+                                              Mem& m, i64 b,
                                               i64 start, i64 stop, i64& pos,
                                               i64& gathered, i64& stalled) {
   m.sa_ok = false;
@@ -648,7 +830,7 @@ __device__ __forceinline__ void lockstep_lane(Lane& s, const SeedArgs& a,
 // and warps hold the lanes in lane order. kStaged (lanes_per_warp == 1):
 // the lane's state stays in registers and its query window in shared
 // memory, as in seed_scan; otherwise each step loads and stores the state
-// tensor and reads q_rows. Dynamic shared memory: kLockHead 64-bit words,
+// tensor and reads q_rows. Dynamic shared memory: Heads::kLockHead words,
 // then (kStaged) per warp 2 * win_words 32-bit words.
 //
 // An iteration: every warp has counted, at the end of its last step, how
@@ -658,12 +840,12 @@ __device__ __forceinline__ void lockstep_lane(Lane& s, const SeedArgs& a,
 // whether the loop goes on, the same for every block) and steps its lanes.
 // Two parities suffice: a block writes parity p again only after the
 // barrier in between, which no block passes before all have read.
-template <bool kStaged>
+template <bool kStaged, class Rows>
 __global__ void __launch_bounds__(kLockWarps * 32)
 seed_lockstep_kernel(const SeedArgs a) {
   u64* shared64 = seeddev::dyn_smem64();
-  const SharedTables tb = stage_tables(a, shared64);
-  u64* warp_counts = shared64 + kScanHead;      // [2, kLockWarps]
+  const SharedTables tb = stage_tables<Rows>(a, shared64);
+  u64* warp_counts = shared64 + Heads<Rows>::kScanHead;   // [2, kLockWarps]
 
   const int warp = threadIdx.x >> 5, t = threadIdx.x & 31;
   const int n_blocks = static_cast<int>(gridDim.x);
@@ -672,8 +854,8 @@ seed_lockstep_kernel(const SeedArgs a) {
   const i64 hi = min(lo + a.lanes_per_warp, a.B);
   const bool pallas = a.mode == kModePallas;
 
-  WarpMem<kStaged> m{a, tb.comb_tail, tb.corr, tb.exc_pos, tb.exc_chr,
-                     nullptr, 0, t, false, 0};
+  WarpMem<kStaged, Rows> m{a, tb.comb_tail, tb.corr, tb.exc_pos,
+                           tb.exc_chr, nullptr, 0, t, false, 0};
   Lane s;                          // kStaged: this warp's one lane
   i64 start = 0, stop = 0;
   u32 need = 0, live = 0;          // this warp's lanes, for the next step
@@ -681,7 +863,7 @@ seed_lockstep_kernel(const SeedArgs a) {
     if (lo < hi) {
       start = a.starts[lo];
       stop = a.stops[lo];
-      u32* win = reinterpret_cast<u32*>(shared64 + kLockHead) +
+      u32* win = reinterpret_cast<u32*>(shared64 + Heads<Rows>::kLockHead) +
                  static_cast<i64>(warp) * 2 * a.win_words;
       m.base = stage_window(a, win, start, t);
       m.win = win;
@@ -763,32 +945,74 @@ seed_lockstep_kernel(const SeedArgs a) {
   }
 }
 
-// LF mapping (ops/rank.lf_t3): the rank one text position to the left.
-__device__ i64 lf_t3(const ResolveArgs& a, i64 k) {
-  if (k == a.primary) return 0;
-  const int inb = static_cast<int>(k & 127);
-  const u32 w = a.t3[(k >> 7) * 64 + 32 + (inb >> 2)];
-  int c = (w >> ((3 - (inb & 3)) * 8)) & 3;
-  // rows with SA < 3 store sym 0: fix the char (the SA == 0 row, which has
-  // none, is the primary, handled above)
-  for (int i = 0; i < 3; ++i)
-    if (k == a.t3_exc_pos[i]) c = static_cast<int>(a.t3_exc_chr[i]);
-  return a.l2[c] + 1 +
-         occ_t3(a.t3, a.t3_major, a.t3_exc_pos, a.t3_exc_chr, k, false, c);
-}
-
-__global__ void resolve_sa_kernel(const ResolveArgs a) {
-  const i64 i = static_cast<i64>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= a.n) return;
-  i64 k = a.k[i];
-  i64 steps = 0;
-  const i64 mask = a.sa_intv - 1;
-  while (k & mask) {
-    k = lf_t3(a, k);
+// The SA values of ranks k: each rank's LF walk (ops/rank.lf_t3) to its
+// sampled row by a group of Rows::kGroup threads, kResolveThreads threads a
+// block.
+// LF(k) = l2[c] + 1 + the strict single-mode rank of c at k, for c the char
+// before row k's suffix; the SA == 0 row (the primary) maps to row 0. The
+// SA < 3 rows store symbol 0: their char comes from t3_exc_chr, except the
+// primary's (stored as 255), which is never used.
+template <class Rows>
+__global__ void __launch_bounds__(kResolveThreads)
+resolve_sa_kernel(const ResolveArgs a) {
+  constexpr int G = Rows::kGroup;
+  const int lane = threadIdx.x & 31, t = lane & (G - 1);
+  const unsigned mask = group_mask<G>(lane);
+  const i64 i = (static_cast<i64>(blockIdx.x) * kResolveThreads +
+                 threadIdx.x) / G;
+  if (i >= a.n) return;                 // the whole group, together
+  i64 exc_pos[3], exc_chr[3];
+#pragma unroll
+  for (int e = 0; e < 3; ++e) {
+    exc_pos[e] = a.t3_exc_pos[e];
+    exc_chr[e] = a.t3_exc_chr[e];
+  }
+  // l2 in four registers: an array indexed by c would live on the stack
+  const i64 l2_0 = a.l2[0], l2_1 = a.l2[1], l2_2 = a.l2[2], l2_3 = a.l2[3];
+  const i64 intv_mask = a.sa_intv - 1;
+  i64 k = a.k[i], steps = 0;
+  while (k & intv_mask) {
+    RowGroup<Rows, G> row;
+    row.load(a.t3, a.t3_major, k, t);
+    const int m = static_cast<int>(k & 127);
+    int c = (row.sym_word(mask, lane & ~(G - 1), m >> 2) >>
+             ((3 - (m & 3)) * 8)) & 3;
+#pragma unroll
+    for (int e = 0; e < 3; ++e)
+      if (k == exc_pos[e] && k != a.primary) c = static_cast<int>(exc_chr[e]);
+    const i64 rank = group_sum<Rows, G>(mask, row.part(t, m, c, false)) +
+                     exc_corr(exc_pos, exc_chr, k, false, c);
+    const i64 l2c = c == 0 ? l2_0 : c == 1 ? l2_1 : c == 2 ? l2_2 : l2_3;
+    k = k == a.primary ? 0 : l2c + 1 + rank;
     ++steps;
   }
-  const int log2_intv = __ffsll(a.sa_intv) - 1;
-  a.out[i] = (steps + a.sa[k >> log2_intv]) % (a.seq_len + 1);
+  if (t == 0) {
+    const i64 s = k >> (__ffsll(a.sa_intv) - 1);
+    a.out[i] = (steps + (Rows::kWide ? a.sa64[s] : a.sa[s])) %
+               (a.seq_len + 1);
+  }
+}
+
+// Strict ranks of given (k, cls, triple) by the row decode, a group of
+// Rows::kGroup threads a query (the tests' window on RowGroup).
+template <class Rows>
+__global__ void __launch_bounds__(kResolveThreads)
+occ_rows_kernel(const OccArgs a) {
+  constexpr int G = Rows::kGroup;
+  const int lane = threadIdx.x & 31, t = lane & (G - 1);
+  const i64 i = (static_cast<i64>(blockIdx.x) * kResolveThreads +
+                 threadIdx.x) / G;
+  if (i >= a.n) return;
+  const i64 k = a.k[i];
+  const int cls = static_cast<int>(a.cls[i]);
+  const bool triple = a.triple[i] != 0;
+  const int m = static_cast<int>(k & 127);
+  RowGroup<Rows, G> row;
+  row.load(a.t3, a.t3_major, k, t);
+  const i64 rank =
+      group_sum<Rows, G>(group_mask<G>(lane), row.part(t, m, cls, triple));
+  if (t == 0)
+    a.out[i] = rank + exc_corr(a.t3_exc_pos, a.t3_exc_chr, k, triple, cls);
 }
 
 }  // namespace
@@ -860,33 +1084,68 @@ int launch_lockstep(K kernel, const SeedArgs* args, size_t shared,
   return launched(cudaLaunchKernelEx(&cfg, kernel, *args));
 }
 
+// The kernel instances for a row layout.
+typedef void (*SeedKernel)(const SeedArgs);
+
+SeedKernel scan_kernel(i64 wide) {
+  return wide ? seed_scan_kernel<WideRows> : seed_scan_kernel<NarrowRows>;
+}
+
+SeedKernel lockstep_kernel(bool staged, i64 wide) {
+  if (staged)
+    return wide ? seed_lockstep_kernel<true, WideRows>
+                : seed_lockstep_kernel<true, NarrowRows>;
+  return wide ? seed_lockstep_kernel<false, WideRows>
+              : seed_lockstep_kernel<false, NarrowRows>;
+}
+
+// A launch of n queries, Rows::kGroup threads a query.
+template <class Rows, class Args>
+int launch_groups(void (*kernel)(const Args), const Args* args, void* stream) {
+  const cudaLaunchConfig_t cfg = launch_config(
+      (args->n * Rows::kGroup + kResolveThreads - 1) / kResolveThreads,
+      kResolveThreads, 0, stream);
+  return launched(cudaLaunchKernelEx(&cfg, kernel, *args));
+}
+
+int scan_head_words(i64 wide) {
+  return wide ? Heads<WideRows>::kScanHead : Heads<NarrowRows>::kScanHead;
+}
+int lock_head_words(i64 wide) {
+  return wide ? Heads<WideRows>::kLockHead : Heads<NarrowRows>::kLockHead;
+}
+
 }  // namespace
 
 extern "C" int gsalign_seed_scan(const SeedArgs* args, void* stream) {
   if (args->B <= 0) return 0;
-  const size_t shared = scan_shared(kScanHead, kScanWarps, args->win_words);
-  cudaError_t e = allow_shared(seed_scan_kernel, shared);
+  const size_t shared = scan_shared(scan_head_words(args->wide), kScanWarps,
+                                    args->win_words);
+  const SeedKernel kernel = scan_kernel(args->wide);
+  cudaError_t e = allow_shared(kernel, shared);
   if (e != cudaSuccess) return static_cast<int>(e);
   const cudaLaunchConfig_t cfg =
       launch_config((args->B + kScanWarps - 1) / kScanWarps, kScanWarps * 32,
                     shared, stream);
-  return launched(cudaLaunchKernelEx(&cfg, seed_scan_kernel, *args));
+  return launched(cudaLaunchKernelEx(&cfg, kernel, *args));
 }
 
-// The most blocks of seed_lockstep that the current device holds at once:
-// with each warp's query window of win_words words a plane staged in shared
-// memory, or (win_words < 0) with no window. 0 blocks: the window does not
-// fit a block's shared memory.
-extern "C" int gsalign_seed_lockstep_blocks(i64 win_words, int* blocks) {
+// The most blocks of seed_lockstep that the current device holds at once,
+// for the row layout `wide`: with each warp's query window of win_words
+// words a plane staged in shared memory, or (win_words < 0) with no window.
+// 0 blocks: the window does not fit a block's shared memory.
+extern "C" int gsalign_seed_lockstep_blocks(i64 win_words, i64 wide,
+                                            int* blocks) {
   *blocks = 0;
   if (win_words < 0)
-    return static_cast<int>(resident_blocks(seed_lockstep_kernel<false>,
-                                            scan_shared(kLockHead, 0, 0),
-                                            blocks));
-  const size_t shared = scan_shared(kLockHead, kLockWarps, win_words);
+    return static_cast<int>(resident_blocks(
+        lockstep_kernel(false, wide),
+        scan_shared(lock_head_words(wide), 0, 0), blocks));
+  const size_t shared =
+      scan_shared(lock_head_words(wide), kLockWarps, win_words);
   if (shared > 227 * 1024) return 0;
   return static_cast<int>(
-      resident_blocks(seed_lockstep_kernel<true>, shared, blocks));
+      resident_blocks(lockstep_kernel(true, wide), shared, blocks));
 }
 
 // args->blocks blocks, launched cooperatively: a grid that the device cannot
@@ -896,18 +1155,27 @@ extern "C" int gsalign_seed_lockstep(const SeedArgs* args, void* stream) {
   if (args->blocks <= 0 || args->lanes_per_warp <= 0 ||
       args->blocks * kLockWarps * args->lanes_per_warp < args->B)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int head = lock_head_words(args->wide);
   if (args->lanes_per_warp == 1 && args->win_words > 0)
     return launch_lockstep(
-        seed_lockstep_kernel<true>, args,
-        scan_shared(kLockHead, kLockWarps, args->win_words), stream);
-  return launch_lockstep(seed_lockstep_kernel<false>, args,
-                         scan_shared(kLockHead, 0, 0), stream);
+        lockstep_kernel(true, args->wide), args,
+        scan_shared(head, kLockWarps, args->win_words), stream);
+  return launch_lockstep(lockstep_kernel(false, args->wide), args,
+                         scan_shared(head, 0, 0), stream);
 }
 
 extern "C" int gsalign_resolve_sa(const ResolveArgs* args, void* stream) {
   if (args->n <= 0) return 0;
-  const int threads = 128;
-  const cudaLaunchConfig_t cfg =
-      launch_config((args->n + threads - 1) / threads, threads, 0, stream);
-  return launched(cudaLaunchKernelEx(&cfg, resolve_sa_kernel, *args));
+  return args->wide ? launch_groups<WideRows>(resolve_sa_kernel<WideRows>,
+                                              args, stream)
+                    : launch_groups<NarrowRows>(
+                          resolve_sa_kernel<NarrowRows>, args, stream);
+}
+
+extern "C" int gsalign_occ_rows(const OccArgs* args, void* stream) {
+  if (args->n <= 0) return 0;
+  return args->wide ? launch_groups<WideRows>(occ_rows_kernel<WideRows>,
+                                              args, stream)
+                    : launch_groups<NarrowRows>(occ_rows_kernel<NarrowRows>,
+                                                args, stream);
 }

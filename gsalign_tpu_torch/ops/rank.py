@@ -1,20 +1,27 @@
 """FM-index rank tables on a torch device, and the rank queries of the scan.
 
 DeviceFMIndex.from_host lays out, array by array, the same tables as the
-JAX package's ops/rank.DeviceFMIndex.from_host (narrow layout): the
-single-char rank rows, the fused order-3 rows with their major
-checkpoints, the packed (lo | sz << 32) class-pair table with the INIT
-jump rows and the INIT short-suffix corrections; then either (full suffix
-array, "direct") the overlapping text windows and the 1024-padded suffix
-array, or (sampled suffix array) the SA samples, which resolve_sa reaches
-by LF walks. The tables of 32-bit words (union, t3, t3_major, text_rows)
-are torch.int32 tensors that hold the words' bit patterns: torch has no
-usable uint32 arithmetic, so the plain rank queries widen what they have
-gathered to int64 (`& M32`) before any bit arithmetic, and the kernels
+JAX package's ops/rank.DeviceFMIndex.from_host: the single-char rank rows,
+the fused order-3 rows, the class-pair table with the INIT jump rows and
+the INIT short-suffix corrections; then either (full suffix array,
+"direct") the overlapping text windows and the 1024-padded suffix array,
+or (sampled suffix array) the SA samples, which resolve_sa reaches by LF
+walks. The tables of 32-bit words (union, t3, t3_major, text_rows) are
+torch.int32 tensors that hold the words' bit patterns: torch has no usable
+uint32 arithmetic, so the plain rank queries widen what they have gathered
+to int64 (`& M32`) before any bit arithmetic, and the kernels
 (csrc/seed.cu) read the words as they are. Values the JAX package keeps in
 int64 stay int64.
 
-Wide (seq_len >= 2^31) indexes are not ported yet (ROADMAP queue 1 item 7).
+Two row layouts, as in the JAX package:
+  narrow (seq_len < 2^31): a 64-word t3 row [32 words of u16 minor
+    checkpoints | 32 symbol words] plus a major checkpoint row every 256
+    rows; comb_pairs packs (lo | sz << 32) in one word a class row.
+  wide (seq_len >= 2^31, or force_wide): a 100-word t3 row [64 u32 low
+    checkpoints | 4 words of 2-bit carries (checkpoint bits 32-33) | 32
+    symbol words], no major rows; comb_pairs is flattened into planes
+    [c8 lo | class lo | c8 sz | class sz | INIT starts | seq_len + 1]; the
+    SA samples are int64. A wide index is never direct.
 lf_t3 and resolve_sa here are the plain torch versions of the resolve_sa
 kernel (ops/seed_cuda.py).
 """
@@ -32,9 +39,15 @@ from gsalign_tpu_torch.index.fmindex import (FMIndex, INIT12_MIN_SEQLEN,
 from gsalign_tpu_torch.utils.device import resolve_device
 
 UNION_ROW = 16   # uint32 words per row of the single-char rank table
+T3_ROW_WIDE = 100  # wide t3 rows: 64 low checkpoints, 4 carry words, 32 syms
 # comb_pairs layout: rows [0, 65536) INIT-8, then 136 class rows (triple
 # INIT, single INIT, triple EXT, single EXT), then the INIT-order rows
 INIT_OFF = 65536 + 136
+# wide (flattened) comb_pairs: the sz plane starts at COMB_HALF, the INIT
+# starts at INIT_OFF_WIDE (one entry a k-mer, and seq_len + 1 after them)
+COMB_HALF = 65536 + 136
+INIT_OFF_WIDE = 2 * COMB_HALF
+WIDE_SLAB = 1 << 22   # t3 rows laid out at a time on a wide index
 SA_ROW_BLOCK = 1024   # sa_rows is padded to a multiple of this many entries
 M32 = 0xFFFFFFFF
 # the tables of 32-bit words, torch.int32 on the device
@@ -55,27 +68,28 @@ def comb_rows(order: int) -> int:
 class DeviceFMIndex:
     """Device rank tables (see the JAX package's DeviceFMIndex for the
     layout of each). Every tensor lives on `device`."""
-    union: torch.Tensor       # int32 [n_rows, 16] (uint32 words)
-    t3: torch.Tensor          # int32 [n3_rows, 64] (uint32 words)
-    t3_major: torch.Tensor    # int32 [ceil(n3/256), 64]
+    union: torch.Tensor       # int32 [n_rows, 16] (uint32 words); wide [1, 16]
+    t3: torch.Tensor          # int32 [n3_rows, 64] | wide [n3_rows, 100]
+    t3_major: torch.Tensor    # int32 [ceil(n3/256), 64]; wide [1, 64]
     l2: torch.Tensor          # int64 [5]
     c64: torch.Tensor         # int64 [65]
     t3_exc_pos: torch.Tensor  # int64 [3]
     t3_exc_chr: torch.Tensor  # int64 [3]
-    comb_pairs: torch.Tensor  # int64 [comb_rows(init_order)]
+    comb_pairs: torch.Tensor  # int64 [comb_rows(init_order)] | wide planes
     init_corr: torch.Tensor   # int64 [12], padded with -1
     # direct (full SA) indexes: the text windows and the suffix array;
-    # [1, 1] and [1] dummies for sampled ones
+    # [1, 1] and [1] dummies for the others
     text_rows: torch.Tensor   # int32 [ceil(2N/1024), 128] (uint32 words)
     sa_rows: torch.Tensor     # int32 [pad1024(seq_len+1)]
-    # sampled indexes: SA_full[k] for k % sa_intv == 0; [1] dummy if direct
-    sa_samples: torch.Tensor  # int32 [ceil((seq_len+1)/sa_intv)]
-    host_sa: Optional[np.ndarray]   # full SA on the host (None if sampled)
+    # the others: SA_full[k] for k % sa_intv == 0; [1] dummy if direct
+    sa_samples: torch.Tensor  # int32 (wide: int64) [ceil((seq_len+1)/intv)]
+    host_sa: Optional[np.ndarray]   # full SA on the host (None if not direct)
     seq_len: int
     primary: int
     init_order: int           # INIT jump k-mer order (10 or 12)
     sa_intv: int
     direct_ok: bool           # full SA: direct extension, host hit expansion
+    wide: bool                # wide row layout (module docstring)
 
     @property
     def device(self) -> torch.device:
@@ -83,28 +97,38 @@ class DeviceFMIndex:
 
     @staticmethod
     def host_tables(fm: FMIndex) -> dict:
-        """The tables as numpy arrays, in the JAX package's dtypes."""
-        if fm.rank_dtype == np.int64:
-            raise NotImplementedError(
-                "wide (seq_len >= 2^31) indexes are not ported yet "
-                "(ROADMAP queue 1 item 7)")
-        if fm.genome is None:
-            raise NotImplementedError(
-                "the device tables need the index's genome")
-        direct_ok = fm.sa_intv == 1
-        from gsalign_tpu_torch.index.fmindex import pack_bwt_codes
-        n3 = fm.t3_cp.shape[0]
-        n1 = fm.occ_cp.shape[0]
-        union = np.zeros((n1, UNION_ROW), dtype=np.uint32)
-        union[:, :4] = fm.occ_cp.astype(np.int32).view(
-            np.uint32).reshape(n1, 4)
-        union[:, 4:12] = fm.bwt_packed.reshape(n1, WORDS_PER_BLOCK)
-        cp3 = fm.t3_cp.astype(np.int32)                  # [n3, 64]
-        major3 = np.ascontiguousarray(cp3[::256])        # [n3/256, 64]
-        minor = (cp3 - major3[np.arange(n3) >> 8]).astype(np.uint32)
-        rows3 = np.empty((n3, 64), dtype=np.uint32)
-        rows3[:, :32] = minor[:, 0::2] | (minor[:, 1::2] << 16)
-        rows3[:, 32:] = fm.t3_packed.reshape(n3, 32)
+        """The tables as numpy arrays, in the JAX package's dtypes. An
+        index without its genome lays out every table that does not need
+        the text, with direct mode off (as the JAX package does); a table
+        that needs the text then raises."""
+        wide = fm.rank_dtype == np.int64
+        text = []            # the genome's text, made at its first use
+
+        def need_text(what):
+            if fm.genome is None:
+                raise ValueError(f"{what} needs the index's genome (the "
+                                 f"index carries none)")
+            if not text:
+                text.append(fm.genome.codes_fwd_rc())
+            return text[0]
+        direct_ok = fm.sa_intv == 1 and not wide and fm.genome is not None
+        if wide:
+            union = np.zeros((1, UNION_ROW), dtype=np.uint32)
+            major3 = np.zeros((1, 64), dtype=np.int32)
+            rows3 = _wide_rows(fm.t3_cp, fm.t3_packed)
+        else:
+            n3 = fm.t3_cp.shape[0]
+            n1 = fm.occ_cp.shape[0]
+            union = np.zeros((n1, UNION_ROW), dtype=np.uint32)
+            union[:, :4] = fm.occ_cp.astype(np.int32).view(
+                np.uint32).reshape(n1, 4)
+            union[:, 4:12] = fm.bwt_packed.reshape(n1, WORDS_PER_BLOCK)
+            cp3 = fm.t3_cp.astype(np.int32)                  # [n3, 64]
+            major3 = np.ascontiguousarray(cp3[::256])        # [n3/256, 64]
+            minor = (cp3 - major3[np.arange(n3) >> 8]).astype(np.uint32)
+            rows3 = np.empty((n3, 64), dtype=np.uint32)
+            rows3[:, :32] = minor[:, 0::2] | (minor[:, 1::2] << 16)
+            rows3[:, 32:] = fm.t3_packed.reshape(n3, 32)
 
         lut = np.zeros((136, 2), dtype=np.int64)
         c64 = np.asarray(fm.c64, dtype=np.int64)
@@ -116,15 +140,15 @@ class DeviceFMIndex:
             lut[132 + c, 0] = l2[c] + 1
         lut[68:132, 0] = c64[:64]
 
-        text = fm.genome.codes_fwd_rc()
         if direct_ok:
+            from gsalign_tpu_torch.index.fmindex import pack_bwt_codes
             # four overlapping 512-base windows (own 16 words + 256-base
             # lookahead) per row: row r >> 2, quarter r & 3 = words
             # [16r, 16r+32)
             n_rows_t = -(-fm.seq_len // 256)
             n4 = -(-n_rows_t // 4)
             padded = np.zeros((n4 * 4 + 1) * 256, dtype=np.uint8)
-            padded[:fm.seq_len] = text
+            padded[:fm.seq_len] = need_text("direct mode's text rows")
             pk = pack_bwt_codes(padded).reshape(n4 * 4 + 1, 16)
             text_rows = np.concatenate([pk[:-1], pk[1:]],
                                        axis=1).reshape(n4, 128)
@@ -134,20 +158,24 @@ class DeviceFMIndex:
         c8 = fm.c8
         if c8 is None:                     # pre-v4 in-memory index
             from gsalign_tpu_torch.index.fmindex import _build_c8
-            c8 = _build_c8(text, fm.seq_len)
+            c8 = _build_c8(need_text("the order-8 jump table"), fm.seq_len)
         init_order = 12 if fm.seq_len > INIT12_MIN_SEQLEN else 10
         if init_order == 12:
             c12 = fm.c12
             if c12 is None:                # small index: c12 never built
                 from gsalign_tpu_torch.index.fmindex import _build_c12
-                c12 = _build_c12(text, fm.seq_len)
+                c12 = _build_c12(need_text("the order-12 jump table"),
+                                 fm.seq_len)
             starts_init = c12[:, 0]
             from gsalign_tpu_torch.index.fmindex import c12_step_keys
             steps = c12_step_keys(c12)     # lb values of the +1 steps
         elif fm.c12 is not None:           # big index carries c12: reuse
-            starts_init, steps = _derive_c10(fm.c12[:, 1], text, fm.seq_len)
+            starts_init, steps = _derive_c10(
+                fm.c12[:, 1], need_text("the order-10 jump table"),
+                fm.seq_len)
         else:                              # small index: direct histogram
-            starts_init, steps = _build_c10(text, fm.seq_len)
+            starts_init, steps = _build_c10(
+                need_text("the order-10 jump table"), fm.seq_len)
         corr = np.full(12, -1, dtype=np.int64)
         # a step at lb bumps starts[lb:], i.e. block lb-1's naive size;
         # lb == 0 only shifts the whole table (no block affected)
@@ -155,10 +183,15 @@ class DeviceFMIndex:
         corr[:keys.shape[0]] = keys
         starts_ext = np.concatenate(
             [starts_init, np.asarray([fm.seq_len + 1], np.int64)])
-        lo = np.concatenate([c8[:, 0], lut[:, 0], starts_ext[:-1]])
-        sz = np.concatenate([c8[:, 1], lut[:, 1], starts_ext[1:]])
-        comb = (lo.astype(np.uint64)
-                | (sz.astype(np.uint64) << np.uint64(32))).view(np.int64)
+        if wide:
+            # values exceed 32 bits: flattened lo and sz planes
+            comb = np.concatenate([c8[:, 0], lut[:, 0], c8[:, 1], lut[:, 1],
+                                   starts_ext]).astype(np.int64)
+        else:
+            lo = np.concatenate([c8[:, 0], lut[:, 0], starts_ext[:-1]])
+            sz = np.concatenate([c8[:, 1], lut[:, 1], starts_ext[1:]])
+            comb = (lo.astype(np.uint64)
+                    | (sz.astype(np.uint64) << np.uint64(32))).view(np.int64)
         n_sa = fm.sa_samples.shape[0]
         if direct_ok:
             sa_rows = np.zeros(-(-n_sa // SA_ROW_BLOCK) * SA_ROW_BLOCK,
@@ -167,7 +200,8 @@ class DeviceFMIndex:
             sa_samples = np.zeros(1, dtype=np.int32)
         else:
             sa_rows = np.zeros(1, dtype=np.int32)
-            sa_samples = np.asarray(fm.sa_samples, dtype=np.int32)
+            sa_samples = np.asarray(fm.sa_samples,
+                                    dtype=np.int64 if wide else np.int32)
         return dict(union=union, t3=rows3, t3_major=major3,
                     l2=l2, c64=c64,
                     t3_exc_pos=np.asarray(fm.t3_exc_pos, dtype=np.int64),
@@ -175,7 +209,7 @@ class DeviceFMIndex:
                     comb_pairs=comb, init_corr=corr, text_rows=text_rows,
                     sa_rows=sa_rows, sa_samples=sa_samples,
                     init_order=init_order, sa_intv=int(fm.sa_intv),
-                    direct_ok=direct_ok)
+                    direct_ok=direct_ok, wide=wide)
 
     @staticmethod
     def from_host(fm: FMIndex, device=None) -> "DeviceFMIndex":
@@ -190,10 +224,11 @@ class DeviceFMIndex:
     def from_tables(tabs: dict, host_sa: Optional[np.ndarray], seq_len: int,
                     primary: int, device=None) -> "DeviceFMIndex":
         """Upload numpy tables: WORD_TABLES (uint32 or int32) as int32 bit
-        patterns, the SA planes as int32, the rest as int64. host_sa is
-        the full suffix array of a direct index, None for a sampled one.
-        device as in from_host."""
+        patterns, the SA planes as int32 (a wide index's SA samples as
+        int64), the rest as int64. host_sa is the full suffix array of a
+        direct index, None for the others. device as in from_host."""
         dev = resolve_device(device)
+        wide = bool(tabs["wide"])
 
         def up(name, dtype=torch.int64):
             a = np.ascontiguousarray(tabs[name])
@@ -210,19 +245,35 @@ class DeviceFMIndex:
             t3_exc_chr=up("t3_exc_chr"), comb_pairs=up("comb_pairs"),
             init_corr=up("init_corr"), text_rows=up("text_rows"),
             sa_rows=up("sa_rows", torch.int32),
-            sa_samples=up("sa_samples", torch.int32), host_sa=host_sa,
-            seq_len=int(seq_len), primary=int(primary),
+            sa_samples=up("sa_samples",
+                          torch.int64 if wide else torch.int32),
+            host_sa=host_sa, seq_len=int(seq_len), primary=int(primary),
             init_order=int(tabs["init_order"]), sa_intv=int(tabs["sa_intv"]),
-            direct_ok=bool(tabs["direct_ok"]))
+            direct_ok=bool(tabs["direct_ok"]), wide=wide)
+
+
+def _wide_rows(t3_cp: np.ndarray, t3_packed: np.ndarray) -> np.ndarray:
+    """The wide t3 rows [n3, 100] uint32: the low 32 bits of the 64 class
+    checkpoints, their bits 32-33 (class j in word 64 + (j >> 4), at bit
+    2 (j & 15)), the 32 symbol words. Laid out WIDE_SLAB rows at a time:
+    whole-table temporaries ran the JAX package's 3 Gb run out of memory."""
+    n3 = t3_cp.shape[0]
+    rows3 = np.empty((n3, T3_ROW_WIDE), dtype=np.uint32)
+    shifts = (np.arange(16, dtype=np.uint32) * 2)[None, None, :]
+    t3p = t3_packed.reshape(n3, 32)
+    for s in range(0, n3, WIDE_SLAB):
+        e = min(s + WIDE_SLAB, n3)
+        cp = t3_cp[s:e]
+        rows3[s:e, :64] = (cp & M32).astype(np.uint32)
+        carry = ((cp >> 32) & 3).astype(np.uint32).reshape(e - s, 4, 16)
+        rows3[s:e, 64:68] = np.bitwise_or.reduce(carry << shifts, axis=2)
+        rows3[s:e, 68:] = t3p[s:e]
+    return rows3
 
 
 def tables_from_jax(jdfm) -> dict:
     """The JAX package's DeviceFMIndex arrays as numpy, keyed like
     DeviceFMIndex.host_tables (for the parity tests)."""
-    if jdfm.wide:
-        raise NotImplementedError(
-            "wide (seq_len >= 2^31) indexes are not ported yet "
-            "(ROADMAP queue 1 item 7)")
     out = {f: np.asarray(getattr(jdfm, f))
            for f in ("union", "t3", "t3_major", "l2", "c64", "t3_exc_pos",
                      "t3_exc_chr", "comb_pairs", "init_corr", "text_rows",
@@ -230,6 +281,7 @@ def tables_from_jax(jdfm) -> dict:
     out["init_order"] = int(jdfm.init_order)
     out["sa_intv"] = int(jdfm.sa_intv)
     out["direct_ok"] = bool(jdfm.direct_ok)
+    out["wide"] = bool(jdfm.wide)
     return out
 
 
@@ -328,6 +380,11 @@ def occ4(dfm: DeviceFMIndex, k: torch.Tensor) -> torch.Tensor:
     return torch.where(valid[:, None], cnt, 0)
 
 
+def sym_offset(dfm: DeviceFMIndex) -> int:
+    """The first symbol word of a t3 row."""
+    return T3_ROW_WIDE - 32 if dfm.wide else 32
+
+
 def occ_t3(dfm: DeviceFMIndex, k: torch.Tensor, is_triple: torch.Tensor,
            cls: torch.Tensor) -> torch.Tensor:
     """Per-lane single-class STRICT rank over the order-3 table.
@@ -337,16 +394,24 @@ def occ_t3(dfm: DeviceFMIndex, k: torch.Tensor, is_triple: torch.Tensor,
     single mode: # of rows in [0, k) whose true preceding char is cls
       (cls in [0, 4)) — sym & 3 plus exception corrections."""
     dev = k.device
-    row = widen(dfm.t3[k >> 7])                              # [B, 64]
-    mrow = dfm.t3_major[k >> 15].to(torch.int64)             # [B, 64]
+    row = widen(dfm.t3[k >> 7])                        # [B, 64] | [B, 100]
+    B = row.shape[0]
+    if dfm.wide:
+        # u32 low words plus their 2-bit carries at bit 32, in int64
+        cw = row[:, 64:68]
+        carry = (cw[:, :, None] >> (2 * torch.arange(16, device=dev))
+                 [None, None, :]) & 3                   # [B, 4, 16]
+        cp = row[:, :64] + (carry.reshape(B, 64) << 32)
+    else:
+        mrow = dfm.t3_major[k >> 15].to(torch.int64)         # [B, 64]
+        packed = row[:, :32]
+        cp = mrow + torch.stack([packed & 0xFFFF, packed >> 16],
+                                dim=2).reshape(B, 64)
     iota = torch.arange(64, device=dev)[None, :]
     want = torch.where(is_triple[:, None], iota == cls[:, None],
                        (iota & 3) == cls[:, None])
-    packed = row[:, :32]
-    cp16 = torch.stack([packed & 0xFFFF, packed >> 16],
-                       dim=2).reshape(packed.shape[0], 64)
-    cp_sel = torch.where(want, mrow + cp16, 0).sum(1)
-    words = row[:, 32:]
+    cp_sel = torch.where(want, cp, 0).sum(1)
+    words = row[:, sym_offset(dfm):]
     j32 = torch.arange(32, device=dev)[None, :]
     keep = ((k & 127)[:, None] - 4 * j32).clamp(0, 4)
     mask = torch.where(keep == 0, 0,
@@ -397,7 +462,7 @@ def lf_t3(dfm: DeviceFMIndex, k: torch.Tensor) -> torch.Tensor:
     strict_rank1(c, k) for c the char preceding row k's suffix; the SA == 0
     row maps to the sentinel row 0. k int64 [B]."""
     inb = k & 127
-    w = widen(dfm.t3[k >> 7, 32 + (inb >> 2)])
+    w = widen(dfm.t3[k >> 7, sym_offset(dfm) + (inb >> 2)])
     c = (w >> ((3 - (inb & 3)) * 8)) & 3
     # rows with SA < 3 store sym 0: fix the char. The SA == 0 row (the
     # primary) has none (its t3_exc_chr is -1, stored as 255 by the index
@@ -411,8 +476,8 @@ def lf_t3(dfm: DeviceFMIndex, k: torch.Tensor) -> torch.Tensor:
 
 
 def sa_table(dfm: DeviceFMIndex) -> torch.Tensor:
-    """The int32 SA plane that resolve_sa reads: every row (direct) or
-    every sa_intv-th row (sampled)."""
+    """The SA plane that resolve_sa reads: every row (direct, int32) or
+    every sa_intv-th row (int32; int64 on a wide index)."""
     return dfm.sa_rows if dfm.direct_ok else dfm.sa_samples
 
 

@@ -15,9 +15,15 @@ wrappers.
                 and is the lane-by-lane diffing tool. Plain version: one
                 iteration of the host loop (seeding.seed_step_plain after
                 seeding._sa_slots).
-    resolve_sa  LF-walk ranks to their sampled SA rows; replaces the JAX
-                package's rank.resolve_sa while_loop. Plain version:
-                rank.resolve_sa.
+    resolve_sa  LF-walk ranks to their sampled SA rows, a group of threads
+                a rank (16 narrow, 32 wide); replaces the JAX package's rank.resolve_sa
+                while_loop. Plain version: rank.resolve_sa.
+    occ_rows    strict ranks of given (rank, class, mode) by the kernels'
+                row decode alone; on no path, the tests' window on the
+                decode. Plain version: rank.occ_t3.
+
+Each kernel runs narrow and wide indexes (ops/rank.py), by an instance of
+its row layout.
 
 On a CPU tensor a wrapper runs the plain version. On a CUDA tensor it
 launches its kernel or raises: a build or launch failure is an error, never
@@ -49,22 +55,31 @@ class _SeedArgs(ctypes.Structure):
             "B", "max_out", "min_seed_length", "max_seed_freq", "sensitive",
             "order", "use_init", "use8", "seq_len", "n_look", "mode",
             "win_words", "step_cap", "gather_k", "max_iters", "blocks",
-            "lanes_per_warp")]
+            "lanes_per_warp", "wide", "comb_init_off", "comb_half")]
 
 
 class _ResolveArgs(ctypes.Structure):
     """csrc/seed.cu ResolveArgs, field for field."""
     _fields_ = [(n, _vp) for n in (
-        "t3", "t3_major", "t3_exc_pos", "t3_exc_chr", "l2", "sa", "k",
-        "out")] + [(n, _ll) for n in ("n", "primary", "seq_len", "sa_intv")]
+        "t3", "t3_major", "t3_exc_pos", "t3_exc_chr", "l2", "sa", "sa64",
+        "k", "out")] + [(n, _ll) for n in (
+            "n", "primary", "seq_len", "sa_intv", "wide")]
+
+
+class _OccArgs(ctypes.Structure):
+    """csrc/seed.cu OccArgs, field for field."""
+    _fields_ = [(n, _vp) for n in (
+        "t3", "t3_major", "t3_exc_pos", "t3_exc_chr", "k", "cls", "triple",
+        "out")] + [(n, _ll) for n in ("n", "wide")]
 
 
 # the C entry points of csrc/seed.cu; each returns a CUDA error code
 SIGNATURES = {
     "gsalign_seed_scan": [ctypes.POINTER(_SeedArgs), _vp],
     "gsalign_seed_lockstep": [ctypes.POINTER(_SeedArgs), _vp],
-    "gsalign_seed_lockstep_blocks": [_ll, ctypes.POINTER(ctypes.c_int)],
-    "gsalign_resolve_sa": [ctypes.POINTER(_ResolveArgs), _vp]}
+    "gsalign_seed_lockstep_blocks": [_ll, _ll, ctypes.POINTER(ctypes.c_int)],
+    "gsalign_resolve_sa": [ctypes.POINTER(_ResolveArgs), _vp],
+    "gsalign_occ_rows": [ctypes.POINTER(_OccArgs), _vp]}
 
 
 def build() -> ctypes.CDLL:
@@ -130,7 +145,10 @@ def _seed_args(dfm, q_rows, lanes, prm, win_words=0, step_cap=0,
         use_init=int(prm.min_seed_length > dfm.init_order),
         use8=int(prm.min_seed_length > 8), seq_len=dfm.seq_len,
         n_look=q_rows.shape[0] * 256, mode=mode,
-        win_words=win_words, step_cap=step_cap, **lockstep)
+        win_words=win_words, step_cap=step_cap, wide=int(dfm.wide),
+        comb_init_off=rank_ops.INIT_OFF_WIDE if dfm.wide
+        else rank_ops.INIT_OFF,
+        comb_half=rank_ops.COMB_HALF if dfm.wide else 0, **lockstep)
 
 
 # the scans stage each lane's query window in shared memory, a lane a warp,
@@ -138,8 +156,15 @@ def _seed_args(dfm, q_rows, lanes, prm, win_words=0, step_cap=0,
 # kScanWarps, kLockWarps): a block may use 227 KB (232,448 bytes) on an H100
 _SCAN_WARPS = 4
 _LOCK_WARPS = 16
-_SCAN_HEAD_BYTES = (136 + 12 + 3 + 3) * 8
 _MAX_SHARED_BYTES = 232448
+
+
+def _scan_head_bytes(wide: bool) -> int:
+    """The scans' shared tables before the query windows (csrc/seed.cu
+    Heads::kScanHead): comb_pairs' 136 class rows (a wide index stages
+    their lo and their sz plane), init_corr, t3_exc_pos and t3_exc_chr, 8
+    bytes each."""
+    return ((2 if wide else 1) * 136 + 12 + 3 + 3) * 8
 
 
 def _win_words(max_len: int) -> int:
@@ -175,7 +200,7 @@ def seed_scan(dfm, q_rows: torch.Tensor, lanes, prm) -> np.ndarray:
         raise ValueError("seed_scan runs the xla and none SA modes: pallas "
                          "mode couples the lanes and needs the lock step")
     win_words = _win_words(lanes.max_len)
-    shared = _SCAN_HEAD_BYTES + _SCAN_WARPS * 2 * win_words * 4
+    shared = _scan_head_bytes(dfm.wide) + _SCAN_WARPS * 2 * win_words * 4
     if shared > _MAX_SHARED_BYTES:
         raise ValueError(f"lanes of {lanes.max_len} bases need {shared} "
                          f"bytes of shared memory a block; the card has "
@@ -237,12 +262,14 @@ def slots_blockwise(need: np.ndarray, lanes_per_block: int, K: int
     return np.where(need & (pos < K), pos, -1)
 
 
-def resident_blocks(lib, win_words: int) -> int:
-    """The most seed_lockstep blocks the current device holds at once, with
-    query windows of win_words words staged (none for win_words < 0)."""
+def resident_blocks(lib, win_words: int, wide: bool = False) -> int:
+    """The most seed_lockstep blocks of a row layout that the current
+    device holds at once, with query windows of win_words words staged
+    (none for win_words < 0)."""
     n = ctypes.c_int(0)
     cuda_build.raise_on(lib.gsalign_seed_lockstep_blocks(
-        win_words, ctypes.byref(n)), "seed_lockstep occupancy query")
+        win_words, int(wide), ctypes.byref(n)),
+        "seed_lockstep occupancy query")
     return n.value
 
 
@@ -254,8 +281,8 @@ def launch_lockstep(lib, stream, dfm, q_rows, lanes, prm, max_iters: int,
     B = lanes.st.shape[1]
     win_words = _win_words(lanes.max_len)
     blocks, per, staged = lockstep_plan(
-        B, resident_blocks(lib, win_words), resident_blocks(lib, -1),
-        max_blocks)
+        B, resident_blocks(lib, win_words, dfm.wide),
+        resident_blocks(lib, -1, dfm.wide), max_blocks)
     K = min(seeding._SA_GATHER_K, B)
     # every iteration steps at least one lane, or the first K needy ones
     cap = _step_cap(lanes.max_len) * (B if prm.sa_mode == "pallas" and B > K
@@ -327,18 +354,19 @@ seed_step.launches = 0
 
 def _resolve_args(dfm, k: torch.Tensor, out: torch.Tensor) -> _ResolveArgs:
     """The kernel's argument struct, after checking every tensor."""
-    dev, i64 = k.device, torch.int64
-    i32 = torch.int32
+    dev, i64, i32 = k.device, torch.int64, torch.int32
+    sa = rank_ops.sa_table(dfm)
     return _ResolveArgs(
         t3=_ptr(dfm.t3, i32, dev, "t3"),
         t3_major=_ptr(dfm.t3_major, i32, dev, "t3_major"),
         t3_exc_pos=_ptr(dfm.t3_exc_pos, i64, dev, "t3_exc_pos"),
         t3_exc_chr=_ptr(dfm.t3_exc_chr, i64, dev, "t3_exc_chr"),
         l2=_ptr(dfm.l2, i64, dev, "l2"),
-        sa=_ptr(rank_ops.sa_table(dfm), i32, dev, "sa"),
+        sa=None if dfm.wide else _ptr(sa, i32, dev, "sa"),
+        sa64=_ptr(sa, i64, dev, "sa") if dfm.wide else None,
         k=_ptr(k, i64, dev, "k"), out=_ptr(out, i64, dev, "out"),
         n=k.shape[0], primary=dfm.primary, seq_len=dfm.seq_len,
-        sa_intv=dfm.sa_intv)
+        sa_intv=dfm.sa_intv, wide=int(dfm.wide))
 
 
 def resolve_sa(dfm, k: torch.Tensor) -> torch.Tensor:
@@ -362,3 +390,43 @@ def resolve_sa(dfm, k: torch.Tensor) -> torch.Tensor:
 
 
 resolve_sa.launches = 0
+
+
+def occ_args(dfm, k: torch.Tensor, cls: torch.Tensor, triple: torch.Tensor,
+             out: torch.Tensor) -> _OccArgs:
+    """occ_rows' argument struct, after checking every tensor."""
+    dev, i64, i32 = k.device, torch.int64, torch.int32
+    n = k.shape[0]
+    if cls.shape != (n,) or triple.shape != (n,) or out.shape != (n,):
+        raise ValueError("ranks, classes, modes and out disagree in shape")
+    return _OccArgs(
+        t3=_ptr(dfm.t3, i32, dev, "t3"),
+        t3_major=_ptr(dfm.t3_major, i32, dev, "t3_major"),
+        t3_exc_pos=_ptr(dfm.t3_exc_pos, i64, dev, "t3_exc_pos"),
+        t3_exc_chr=_ptr(dfm.t3_exc_chr, i64, dev, "t3_exc_chr"),
+        k=_ptr(k, i64, dev, "k"), cls=_ptr(cls, i64, dev, "cls"),
+        triple=_ptr(triple, i64, dev, "triple"),
+        out=_ptr(out, i64, dev, "out"), n=n, wide=int(dfm.wide))
+
+
+def occ_rows(dfm, k: torch.Tensor, cls: torch.Tensor, triple: torch.Tensor
+             ) -> torch.Tensor:
+    """Kernel occ_rows: the strict rank of class cls[i] at rank k[i], in
+    triple mode where triple[i] (int64 [n] each) -> int64 [n], as many
+    threads a query as resolve_sa takes a rank."""
+    dev = k.device
+    if dev.type == "cpu":
+        return rank_ops.occ_t3(dfm, k, triple != 0, cls)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    k, cls, triple = (x.to(torch.int64).contiguous() for x in (k, cls, triple))
+    out = torch.empty_like(k)
+    if k.shape[0]:
+        cuda_build.raise_on(build().gsalign_occ_rows(
+            ctypes.byref(occ_args(dfm, k, cls, triple, out)),
+            cuda_build.stream(dev)), "occ_rows")
+        occ_rows.launches += 1
+    return out
+
+
+occ_rows.launches = 0

@@ -26,8 +26,10 @@ Shortcuts that keep the seed set exact (as in the JAX package):
            resolves its occurrence (one SA read) and compares 256 query
            bases against the packed text per iteration; the hit records
            the resolved position (k0 < 0 encodes it) instead of a rank.
-           Sampled-SA indexes have no direct mode; their hits are resolved
-           afterwards by resolve_sa's LF walks.
+           Sampled-SA and wide indexes have no direct mode; their hits are
+           resolved afterwards by resolve_sa's LF walks.
+On a wide index (ops/rank.py) ranks pass 2^31: the lane state and the
+records are int64 throughout, so only the class-row reads differ.
 
 How a lane entering direct mode reads its SA word (sa_mode, from
 GSALIGN_SA_MODE as the JAX package's _pick_sa_mode): "xla" (the default)
@@ -283,19 +285,30 @@ def seed_step_plain(dfm: DeviceFMIndex, q_rows: torch.Tensor,
     can3 = iv_ext & (ext_pos + 2 < stops_t) & real3 & ~tri_failed
     cls = torch.where(can3, cls3, cls1)
 
-    # one packed (lo | sz << 32) row per lane; the INIT-order rows carry
-    # starts[g+1], so their sz is starts[g+1] - starts[g] minus the
-    # short-suffix step keys in init_corr
+    # one class row per lane; the INIT-order rows carry starts[g+1], so
+    # their sz is starts[g+1] - starts[g] minus the short-suffix step keys
+    # in init_corr. Narrow: one packed (lo | sz << 32) word a row. Wide:
+    # two reads in the flattened planes, sz at lo + COMB_HALF, or for an
+    # INIT-order row starts[g+1] at lo + 1.
     i3_lo_idx = 65536 + cls3
     i1_lo_idx = 65536 + 64 + (3 - cls1)
+    init_off = rank_ops.INIT_OFF_WIDE if dfm.wide else rank_ops.INIT_OFF
     init_lo_idx = torch.where(
-        init_can12, rank_ops.INIT_OFF + cls_init,
+        init_can12, init_off + cls_init,
         torch.where(init_can8, cls8,
                     torch.where(init_can3, i3_lo_idx, i1_lo_idx)))
     ext_lo_idx = torch.where(can3, i3_lo_idx, i1_lo_idx)
-    v = dfm.comb_pairs[torch.where(in_init, init_lo_idx, ext_lo_idx)]
-    sel_a = v & M32
-    sel_b = v >> 32
+    idx_a = torch.where(in_init, init_lo_idx, ext_lo_idx)
+    if dfm.wide:
+        idx_b = torch.where(
+            in_init, init_lo_idx + torch.where(init_can12, 1,
+                                               rank_ops.COMB_HALF), idx_a)
+        v = dfm.comb_pairs[torch.cat([idx_a, idx_b])]
+        sel_a, sel_b = v[:B], v[B:]
+    else:
+        v = dfm.comb_pairs[idx_a]
+        sel_a = v & M32
+        sel_b = v >> 32
     corr_n = (cls_init[:, None] == dfm.init_corr[None, :]).sum(1)
     init_sz = torch.where(init_can12, sel_b - sel_a - corr_n, sel_b)
 

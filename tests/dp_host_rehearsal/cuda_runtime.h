@@ -6,7 +6,10 @@
 // exchanges through a per-warp array between two std::barrier waits,
 // __syncthreads a per-block barrier, the cluster barrier one over the
 // cluster's blocks, dynamic shared memory a buffer a block; all blocks of a
-// grid run at once, as a cooperative launch's do. It checks arithmetic,
+// grid run at once, as a cooperative launch's do. An exchange whose mask is
+// not the whole warp waits only for the threads the mask names (a barrier
+// a mask, made at its first use), so a group of a warp that has left its
+// loop does not hold the others, as on the card. It checks arithmetic,
 // indexing and the protocols between warps and blocks; it says nothing of
 // what nvcc accepts or of speed. Keep problems small: a thread a CUDA
 // thread. The stand-in device holds 10 blocks at once (5 SMs of 2).
@@ -17,7 +20,9 @@
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
+#include <map>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 #define __global__
@@ -28,6 +33,7 @@
 using std::max;
 using std::min;
 struct dim3 { unsigned x = 1, y = 1, z = 1; dim3() {} dim3(unsigned a) : x(a) {} };
+struct uint2 { uint32_t x, y; };
 struct uint4 { uint32_t x, y, z, w; };
 inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) { return uint4{a, b, c, d}; }
 typedef int cudaError_t;
@@ -44,7 +50,10 @@ inline cudaError_t cudaGetDevice(int* dev) { *dev = 0; return 0; }
 inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) { *v = 5; return 0; }
 template <class K> cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) { *n = 2; return 0; }
 
-struct ShimWarp { std::barrier<> bar{32}; int slot[32]; };
+struct ShimWarp {
+  std::barrier<> bar{32}; long long slot[32];
+  std::mutex mu; std::map<unsigned, std::unique_ptr<std::barrier<>>> part;
+};
 struct ShimBlock { std::unique_ptr<std::barrier<>> bar; uint8_t* smem; std::vector<ShimWarp> warps; };
 struct ShimCluster { std::unique_ptr<std::barrier<>> bar; std::vector<ShimBlock*> blocks; };
 inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
@@ -52,31 +61,49 @@ inline thread_local ShimWarp* shim_warp;
 inline thread_local ShimBlock* shim_block;
 inline thread_local ShimCluster* shim_cluster;
 
-inline void __syncwarp() { shim_warp->bar.arrive_and_wait(); }
+// the barrier of the threads that `mask` names in this thread's warp
+inline std::barrier<>& shim_bar(unsigned mask) {
+  if (mask == 0xFFFFFFFFu) return shim_warp->bar;
+  std::lock_guard<std::mutex> lock(shim_warp->mu);
+  auto& b = shim_warp->part[mask];
+  if (!b) b = std::make_unique<std::barrier<>>(__builtin_popcount(mask));
+  return *b;
+}
+// publish v in this lane's slot, wait for the mask's threads, read lane
+// `src`'s value, wait again (the slot may be written by the next exchange)
+template <class T> inline T shim_exchange(unsigned mask, T v, int src) {
+  static_assert(sizeof(T) <= sizeof(long long));
+  long long w = 0; std::memcpy(&w, &v, sizeof(T));
+  std::barrier<>& b = shim_bar(mask);
+  shim_warp->slot[threadIdx.x & 31] = w; b.arrive_and_wait();
+  w = shim_warp->slot[src & 31]; b.arrive_and_wait();
+  T r; std::memcpy(&r, &w, sizeof(T)); return r; }
+
+inline void __syncwarp(unsigned mask = 0xFFFFFFFFu) { shim_bar(mask).arrive_and_wait(); }
 inline void __syncthreads() { shim_block->bar->arrive_and_wait(); }
-inline int __shfl_sync(unsigned, int v, int src) {
-  shim_warp->slot[threadIdx.x & 31] = v; shim_warp->bar.arrive_and_wait();
-  int r = shim_warp->slot[src & 31]; shim_warp->bar.arrive_and_wait(); return r; }
-inline int __shfl_up_sync(unsigned, int v, int d) {
+template <class T> inline T __shfl_sync(unsigned mask, T v, int src) { return shim_exchange(mask, v, src); }
+template <class T> inline T __shfl_xor_sync(unsigned mask, T v, int lane_mask) {
+  return shim_exchange(mask, v, (threadIdx.x & 31) ^ lane_mask); }
+inline int __shfl_up_sync(unsigned mask, int v, int d) {
   int lane = threadIdx.x & 31;
-  shim_warp->slot[lane] = v; shim_warp->bar.arrive_and_wait();
-  int r = lane >= d ? shim_warp->slot[lane - d] : v; shim_warp->bar.arrive_and_wait(); return r; }
+  return shim_exchange(mask, v, lane >= d ? lane - d : lane); }
 inline int __vibmax_s32(int a, int b, bool* p) { *p = a >= b; return a >= b ? a : b; }
 inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) { uint64_t w = ((uint64_t)y << 32) | x; uint32_t r = 0; for (int i = 0; i < 4; ++i) { uint32_t sel = (s >> (4 * i)) & 0xf; uint32_t b = (w >> (8 * (sel & 7))) & 0xff; if (sel & 8) b = (b & 0x80) ? 0xff : 0; r |= b << (8 * i); } return r; }
 template <class T> inline T __ldcg(const T* p) { return *p; }
 template <class T> inline void __stcg(T* p, T v) { *p = v; }
-inline int __shfl_down_sync(unsigned, int v, int d) {
+inline int __shfl_down_sync(unsigned mask, int v, int d) {
   int lane = threadIdx.x & 31;
-  shim_warp->slot[lane] = v; shim_warp->bar.arrive_and_wait();
-  int r = lane + d < 32 ? shim_warp->slot[lane + d] : v; shim_warp->bar.arrive_and_wait(); return r; }
-inline unsigned __ballot_sync(unsigned, bool p) {
-  shim_warp->slot[threadIdx.x & 31] = p; shim_warp->bar.arrive_and_wait();
-  unsigned r = 0; for (int i = 0; i < 32; ++i) r |= (unsigned)(shim_warp->slot[i] != 0) << i;
-  shim_warp->bar.arrive_and_wait(); return r; }
-inline unsigned __reduce_add_sync(unsigned, unsigned v) {
-  shim_warp->slot[threadIdx.x & 31] = (int)v; shim_warp->bar.arrive_and_wait();
-  unsigned r = 0; for (int i = 0; i < 32; ++i) r += (unsigned)shim_warp->slot[i];
-  shim_warp->bar.arrive_and_wait(); return r; }
+  return shim_exchange(mask, v, lane + d < 32 ? lane + d : lane); }
+inline unsigned __ballot_sync(unsigned mask, bool p) {
+  std::barrier<>& b = shim_bar(mask);
+  shim_warp->slot[threadIdx.x & 31] = p; b.arrive_and_wait();
+  unsigned r = 0; for (int i = 0; i < 32; ++i) if (mask >> i & 1) r |= (unsigned)(shim_warp->slot[i] != 0) << i;
+  b.arrive_and_wait(); return r; }
+inline unsigned __reduce_add_sync(unsigned mask, unsigned v) {
+  std::barrier<>& b = shim_bar(mask);
+  shim_warp->slot[threadIdx.x & 31] = v; b.arrive_and_wait();
+  unsigned r = 0; for (int i = 0; i < 32; ++i) if (mask >> i & 1) r += (unsigned)shim_warp->slot[i];
+  b.arrive_and_wait(); return r; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }
 inline int __ffs(int x) { return __builtin_ffs(x); }

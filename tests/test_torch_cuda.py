@@ -1,6 +1,7 @@
 """The hand-written kernels (DP, masked_gather, seed_scan, seed_lockstep
-and as one iteration of it seed_step, resolve_sa) against their plain torch
-versions on a CUDA card. Every test skips
+and as one iteration of it seed_step, resolve_sa, and the row decode alone,
+occ_rows) against their plain torch versions on a CUDA card, on narrow and
+wide indexes. Every test skips
 without a card. This file imports no JAX, so it runs on a machine without
 it:
 
@@ -19,6 +20,7 @@ from gsalign_tpu_torch.ops import dp_cuda, gather, rank, seed_cuda, seeding
 # an installed package of that name first where one exists
 from dp_cases import (edge_batch, load_oracle, make_batch, max_abs_err,
                       oracle_batch, oracle_rows)
+from torch_rows import carry_rows
 
 
 @pytest.fixture
@@ -409,7 +411,8 @@ def test_seed_lockstep_raises_on_a_grid_the_card_cannot_hold(card,
     q_rows = seeding.build_qrows(torch.from_numpy(g.codes_fwd).to(card))
     prm = seeding.ScanParams(12, 100, False, 4, "pallas")
     lanes = seeding.ScanLanes.start(starts, starts + 3, prm.max_out, card)
-    monkeypatch.setattr(seed_cuda, "resident_blocks", lambda lib, w: 1 << 20)
+    monkeypatch.setattr(seed_cuda, "resident_blocks",
+                        lambda lib, w, wide=False: 1 << 20)
     n0 = seed_cuda.seed_lockstep.launches
     with pytest.raises(RuntimeError, match="seed_lockstep launch failed"):
         seed_cuda.seed_lockstep(dfm, q_rows, lanes, prm)
@@ -447,6 +450,84 @@ def test_resolve_sa_matches_plain_on_card(card, sa_intv):
     got = seed_cuda.resolve_sa(dfm, k)
     assert torch.equal(got, rank.resolve_sa(dfm, k))
     np.testing.assert_array_equal(got.cpu().numpy(), full)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True])
+def test_resolve_sa_layouts_match_plain_on_card(card, wide):
+    """resolve_sa on every rank of a narrow sampled and of a forced-wide
+    index (sa_intv 8): the plain LF walk's values and the full suffix
+    array's."""
+    g, _ = genome_and_queries(48)
+    full = build_fmindex(g, sa_intv=1).sa_samples
+    dfm = rank.DeviceFMIndex.from_host(
+        build_fmindex(g, sa_intv=8, force_wide=wide), card)
+    assert dfm.wide == wide
+    k = torch.arange(dfm.seq_len + 1, dtype=torch.int64, device=card)
+    n0 = seed_cuda.resolve_sa.launches
+    got = seed_cuda.resolve_sa(dfm, k)
+    assert seed_cuda.resolve_sa.launches == n0 + 1
+    assert torch.equal(got, rank.resolve_sa(dfm, k))
+    np.testing.assert_array_equal(got.cpu().numpy(), full)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sensitive", [False, True])
+def test_wide_seed_scan_matches_plain_on_card(card, monkeypatch, sensitive):
+    """seed_scan and seed_lockstep (no slots) on a forced-wide index
+    against the plain scan, round by round; the seeds of the whole scan
+    equal the narrow sampled index's."""
+    monkeypatch.delenv("GSALIGN_SA_MODE", raising=False)
+    g, queries = genome_and_queries(77)
+    dfm = rank.DeviceFMIndex.from_host(build_fmindex(g, force_wide=True),
+                                       card)
+    assert dfm.wide and seeding.pick_sa_mode(dfm) == "none"
+    monkeypatch.setenv("GSALIGN_SA_MODE", "pallas")
+    assert seeding.pick_sa_mode(dfm) == "none"
+    kw = dict(min_seed_length=12, sensitive=sensitive, chunk=300,
+              max_out_cap=4)
+    for q_rows, starts, stops, prm in scan_cases(dfm, queries, **kw):
+        n0 = seed_cuda.seed_scan.launches
+        st, recs = seeding.scan_lanes(dfm, q_rows, starts, stops, prm)
+        assert seed_cuda.seed_scan.launches == n0 + 1
+        st_p, recs_p = seeding.scan_lanes(dfm, q_rows, starts, stops, prm,
+                                          plain=True)
+        np.testing.assert_array_equal(st, st_p)
+        np.testing.assert_array_equal(recs, recs_p)
+        lanes = seeding.ScanLanes.start(starts, stops, prm.max_out, card)
+        seed_cuda.seed_lockstep(dfm, q_rows, lanes, prm)
+        np.testing.assert_array_equal(lanes.st.cpu().numpy(), st)
+    narrow = rank.DeviceFMIndex.from_host(build_fmindex(g, sa_intv=8), card)
+    for a, b in zip(seeding.find_seeds_all(dfm, queries, **kw),
+                    seeding.find_seeds_all(narrow, queries, **kw)):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True])
+def test_occ_rows_matches_plain_on_card(card, wide):
+    """The row decode alone against the plain occ_t3 in both modes: on a
+    narrow index's rows, and on synthetic wide rows whose checkpoints pass
+    2^32 (ranks up to 2^38)."""
+    import dataclasses
+    rng = np.random.default_rng(16)
+    g, _ = genome_and_queries(9)
+    dfm = rank.DeviceFMIndex.from_host(
+        build_fmindex(g, sa_intv=8, force_wide=wide), card)
+    if wide:
+        rows = carry_rows(rng, dfm.t3.shape[0])
+        dfm = dataclasses.replace(dfm, t3=torch.from_numpy(
+            rows.view(np.int32)).to(card))
+    n = 50_000
+    k = torch.from_numpy(rng.integers(0, dfm.t3.shape[0] * 128, n)).to(card)
+    tri = torch.from_numpy(rng.random(n) < 0.5).to(card)
+    cls = torch.from_numpy(rng.integers(0, 64, n)).to(card)
+    cls = torch.where(tri, cls, cls & 3)
+    got = seed_cuda.occ_rows(dfm, k, cls, tri.long())
+    want = rank.occ_t3(dfm, k, tri, cls)
+    assert torch.equal(got, want)
+    assert (int(want.min()) >= 2 ** 32) == wide
 
 
 @pytest.mark.cuda

@@ -187,15 +187,3 @@ def test_sampled_device_tables_match_jax(genomes, sa_intv):
     assert dfm.sa_intv == sa_intv and dfm.sa_samples.dtype == torch.int32
     np.testing.assert_array_equal(dfm.sa_samples.numpy(), tfm.sa_samples)
     assert tuple(dfm.text_rows.shape) == (1, 1)
-
-
-def test_unported_index_kinds_raise(genomes):
-    _, tg = genomes
-    wide = tfmindex.build_fmindex(tg, force_wide=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        trank.DeviceFMIndex.from_host(wide, "cpu")
-    jg, _ = genomes
-    jwide = jrank.DeviceFMIndex.from_host(
-        jfmindex.build_fmindex(jg, force_wide=True, prefer_device=False))
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        trank.tables_from_jax(jwide)

@@ -1,17 +1,24 @@
 """csrc/seed.cu rehearsed on the host: the CUDA source, unchanged, compiled
 as C++ by g++ over the stand-in headers of tests/dp_host_rehearsal and
 tests/seed_host_rehearsal (a std::thread a CUDA thread, the grid barrier by
-the kernel's own protocol over host atomics) into a shared library, which
-ops/seed_cuda.launch_lockstep drives with CPU tensors as it drives the
-card's. seed_lockstep is held against the host loop
-scan_lockstep(plain=True) on lanes of the 100 kb pair: equal lane state,
-records and counters (iterations, live lanes, words gathered, stalls). It
-covers the kernel's arithmetic, its slot prefix across warps and blocks and
-its barrier protocol, not what nvcc accepts (tests/test_torch_cuda.py runs
-on a card). Integers throughout: every comparison is exact. Skips without
-g++."""
+the kernel's own protocol over host atomics, an exchange that waits only
+for the threads its mask names) into a shared library, which the wrappers'
+argument builders in ops/seed_cuda drive with CPU tensors as they drive
+the card's. On lanes of the 100 kb pair, narrow and forced-wide:
+seed_lockstep against the host loop scan_lockstep(plain=True) (equal lane
+state, records and counters: iterations, live lanes, words gathered,
+stalls) and seed_scan against seed_scan_plain. resolve_sa, a group of 16
+(narrow) or 32 (wide) threads a rank, groups that leave the walk at
+different depths side by side, against rank.resolve_sa on a narrow sampled
+and a forced-wide index; and the row decode alone (occ_rows) against
+rank.occ_t3 on a narrow index's rows and on wide rows whose checkpoints
+pass 2^32. It covers the kernels' arithmetic, their slot
+prefix across warps and blocks, their barrier protocol and their group
+masks, not what nvcc accepts (tests/test_torch_cuda.py runs on a card).
+Integers throughout: every comparison is exact. Skips without g++."""
 
 import ctypes
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -23,6 +30,7 @@ import torch
 from gsalign_tpu_torch.genome.packing import chars_to_codes, pack_genome
 from gsalign_tpu_torch.index.fmindex import build_fmindex
 from gsalign_tpu_torch.ops import cuda_build, seed_cuda
+from gsalign_tpu_torch.ops import rank as trank
 from gsalign_tpu_torch.ops import seeding as tseeding
 from gsalign_tpu_torch.ops.rank import DeviceFMIndex
 from tests.make_testdata import make_pair
@@ -55,17 +63,40 @@ def host_lib(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def case():
+def pair():
+    return make_pair(total_len=100_000)
+
+
+def lanes_of(dfm, qry):
     """(index tables, query rows, lane starts, lane stops) on the CPU:
     LANES lanes of LANE_LEN bases from the 100 kb pair's first query
     chromosome, across the start of its inversion."""
-    ref, qry = make_pair(total_len=100_000)
-    dfm = DeviceFMIndex.from_host(build_fmindex(pack_genome(ref)), "cpu")
     codes = chars_to_codes(qry[0][1])
     q_rows = tseeding.build_qrows(torch.from_numpy(codes))
     first = 50_000 // 3 - LANES * LANE_LEN // 2
     starts = first + LANE_LEN * np.arange(LANES, dtype=np.int64)
     return dfm, q_rows, starts, starts + LANE_LEN
+
+
+@pytest.fixture(scope="module")
+def case(pair):
+    ref, qry = pair
+    return lanes_of(DeviceFMIndex.from_host(build_fmindex(pack_genome(ref)),
+                                            "cpu"), qry)
+
+
+@pytest.fixture(scope="module")
+def sampled(pair):
+    """The 100 kb reference's sa_intv=8 index, narrow and forced-wide."""
+    g = pack_genome(pair[0])
+    return {wide: DeviceFMIndex.from_host(
+        build_fmindex(g, sa_intv=8, force_wide=wide), "cpu")
+        for wide in (False, True)}
+
+
+@pytest.fixture(scope="module")
+def wide_case(pair, sampled):
+    return lanes_of(sampled[True], pair[1])
 
 
 def params(sa_mode):
@@ -80,10 +111,13 @@ def params(sa_mode):
     ("xla", 512, None, 0),      # no slots: the diffing tool's scan
     ("pallas", 2, None, 9),     # stopped after nine iterations
     ("pallas", 2, 2, 1),        # seed_step: one iteration
+    ("none", 512, None, 0),     # a forced-wide index: wide rows
+    ("none", 512, 1, 0),        # and three lanes a warp
 ])
-def test_seed_lockstep_on_host_threads(monkeypatch, host_lib, case, sa_mode,
-                                       K, max_blocks, max_iters):
-    dfm, q_rows, starts, stops = case
+def test_seed_lockstep_on_host_threads(monkeypatch, host_lib, case,
+                                       wide_case, sa_mode, K, max_blocks,
+                                       max_iters):
+    dfm, q_rows, starts, stops = wide_case if sa_mode == "none" else case
     prm = params(sa_mode)
     monkeypatch.setattr(tseeding, "_SA_GATHER_K", K)
     want = tseeding.ScanLanes.start(starts, stops, prm.max_out, "cpu")
@@ -127,3 +161,73 @@ def test_a_grid_short_of_the_lanes_is_refused(host_lib, case):
                                 gather_k=2, max_iters=0, blocks=2,
                                 lanes_per_warp=1)
     assert host_lib.gsalign_seed_lockstep(ctypes.byref(args), None) != 0
+
+
+@pytest.mark.parametrize("sensitive", [False, True])
+@pytest.mark.parametrize("wide", [False, True])
+def test_seed_scan_on_host_threads(host_lib, case, wide_case, wide,
+                                   sensitive):
+    """seed_scan (a warp a lane, run to its end) against seed_scan_plain
+    on the full-SA index in xla mode and on the forced-wide index, with
+    and without sensitive seeding."""
+    dfm, q_rows, starts, stops = wide_case if wide else case
+    prm = dataclasses.replace(params("none" if wide else "xla"),
+                              sensitive=sensitive)
+    want = tseeding.ScanLanes.start(starts, stops, prm.max_out, "cpu")
+    want_st = tseeding.seed_scan_plain(dfm, q_rows, want, prm)
+    got = tseeding.ScanLanes.start(starts, stops, prm.max_out, "cpu")
+    win_words = seed_cuda._win_words(got.max_len)
+    args = seed_cuda._seed_args(dfm, q_rows, got, prm, win_words=win_words,
+                                step_cap=seed_cuda._step_cap(got.max_len))
+    assert host_lib.gsalign_seed_scan(ctypes.byref(args), None) == 0
+    np.testing.assert_array_equal(got.read_back()[0], want_st)
+    assert torch.equal(got.out, want.out)
+    assert want_st[tseeding.F_OUT_N].sum() > 0
+
+
+def probe_ranks(dfm, n: int) -> torch.Tensor:
+    """n ranks: the primary, the SA < 3 exception rows, row 0, the last
+    rank, and random ones (uneven walk depths side by side)."""
+    rng = np.random.default_rng(dfm.seq_len)
+    k = rng.integers(0, dfm.seq_len + 1, n)
+    special = [dfm.primary, 0, dfm.seq_len] + dfm.t3_exc_pos.tolist()
+    k[:len(special)] = special
+    return torch.from_numpy(k.astype(np.int64))
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_resolve_sa_on_host_threads(host_lib, sampled, wide):
+    """The group-a-rank resolve_sa against the plain LF walk on 40 ranks
+    (the last block's last groups idle)."""
+    dfm = sampled[wide]
+    k = probe_ranks(dfm, 40)
+    out = torch.full_like(k, -1)
+    args = seed_cuda._resolve_args(dfm, k, out)
+    assert host_lib.gsalign_resolve_sa(ctypes.byref(args), None) == 0
+    assert torch.equal(out, trank.resolve_sa(dfm, k))
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_row_decode_on_carry_rows(host_lib, wide):
+    """occ_rows against rank.occ_t3 in both modes: on the synthetic wide
+    rows of tests/test_torch_wide.py (checkpoints past 2^32, carries 1 to
+    3), or on a narrow index's rows, row edges included."""
+    if wide:
+        from tests.test_torch_wide import carry_case
+        dfm, _, k, tri, cls = carry_case(n=48)
+    else:
+        rng = np.random.default_rng(16)
+        dfm = DeviceFMIndex.from_host(build_fmindex(pack_genome(
+            make_pair(total_len=20_000)[0])), "cpu")
+        k = rng.integers(0, dfm.seq_len + 1, 48)
+        k[:4] = [0, 1, 127, 128]
+        tri = rng.random(48) < 0.5
+        cls = np.where(tri, rng.integers(0, 64, 48), rng.integers(0, 4, 48))
+    k, tri, cls = (torch.from_numpy(np.asarray(x, dtype=np.int64))
+                   for x in (k, tri, cls))
+    out = torch.full_like(k, -1)
+    args = seed_cuda.occ_args(dfm, k, cls, tri, out)
+    assert host_lib.gsalign_occ_rows(ctypes.byref(args), None) == 0
+    want = trank.occ_t3(dfm, k, tri != 0, cls)
+    assert torch.equal(out, want)
+    assert (int(want.min()) >= 2 ** 32) == wide
