@@ -17,6 +17,8 @@ Phases (each raises on failure; nothing is caught):
   2. each DP kernel (dp_small, dp_any) against its plain torch version on
      the card at every bucket width the aligner uses (L 256 through both),
      and on the ksw2 oracle cases of tests/golden: op codes must be equal;
+     entry()'s fn (gsalign_tpu_torch/entry.py) launched once on the card,
+     its ops equal to the plain DP's;
   3. 100 kb: the port's CLI on the card, byte-identical to the C reference
      outputs in tests/golden (default, -sen, -fmt 2);
   4. 4.6 Mb (E. coli scale, make_pair(4_600_000)): index build and align
@@ -28,11 +30,20 @@ Phases (each raises on failure; nothing is caught):
      GSALIGN_SA_MODE=pallas, which launches seed_lockstep once a scan round
      (the lock-step scan with the slot compaction and the masked gather
      inside it) and no other seed kernel, and must gather SA words;
+     then the same pair through parallel/distributed and an imported
+     index, each with the JAX package's sha256 values: a -resume run
+     killed (kill -9) once its first shard is committed, then resumed
+     (only the uncommitted chromosomes recomputed); -t 2 (a thread a
+     chromosome, the device tables laid out once); two CLI processes on
+     the one card in a gloo group (WORLD_SIZE, RANK, MASTER_ADDR,
+     MASTER_PORT), each launching the seed and DP kernels; the reference
+     written as BWA files, imported and aligned;
   5. 12 Mb (yeast scale, make_pair(12_000_000)): align through the CLI in
      the xla and pallas SA modes, on an sa_intv=8 index and on a
      forced-wide index (the layout of seq_len >= 2^31; sa_intv 8), both
      built through the API (seed_scan and resolve_sa launched), each with
-     the JAX package's counts and sha256 values;
+     the JAX package's counts and sha256 values; build_suffix_array_torch
+     on the card against the native SA-IS on its 24 M-row text, both timed;
   6. the seed-stage kernels against their plain torch versions on the
      card: the stand-alone masked_gather on the 12 Mb sa_rows at K = 512;
      seed_scan at 4.6 Mb and 12 Mb (xla) and on the sa_intv=8 index (equal
@@ -519,6 +530,245 @@ def phase_46mb() -> dict:
         must_not_launch=("seed_scan", "seed_step", "masked_gather",
                          "resolve_sa"))
     return runs
+
+
+def shard_outputs(tag: str, prefix: str, log, expect: dict) -> dict:
+    """A run through parallel/distributed: the merged files' sha256
+    values, and where `log` holds every chromosome's shard (a resumed run
+    logs only those it recomputed; None) the alignments and lengths summed
+    over its Alignment# lines, checked against `expect`. The run logs no
+    variant line; the sha256 values carry the other counts."""
+    got = {
+        "maf_sha256": hashlib.sha256(read(f"{prefix}.maf")).hexdigest(),
+        "vcf_sha256_no_reference_line": hashlib.sha256(
+            strip_reference_line(read(f"{prefix}.vcf"))).hexdigest(),
+    }
+    if log is not None:
+        m = re.findall(r"Alignment#=(\d+) \(total alignment length="
+                       r"(\d+)\)", log)
+        got["alignments"] = sum(int(n) for n, _ in m)
+        got["aln_len"] = sum(int(ln) for _, ln in m)
+    want = {k: expect[k] for k in got}
+    say(f"[{tag}] outputs {json.dumps(got)}")
+    if got != want:
+        raise AssertionError(f"{tag}: outputs differ from the JAX run: "
+                             f"expected {want}")
+    left = [f for f in os.listdir(os.path.dirname(prefix))
+            if f.startswith(os.path.basename(prefix) + ".part")]
+    if left:
+        raise AssertionError(f"{tag}: shards left after the merge: {left}")
+    return got
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+# a CLI run in a process of its own that prints, as its last stdout line,
+# the launches it made of every kernel
+WORKER = """
+import json, sys
+sys.path[:0] = [{repo!r}, {tests!r}]
+from gsalign_tpu_torch import cli
+from chip_smoke import counters
+rc = cli.main(["gsalign-tpu-torch"] + sys.argv[1:])
+print(json.dumps({{"rc": rc, "launches": {{k: f.launches for k, f in
+                                        counters().items()}}}}))
+"""
+
+
+def cli_process(*argv, env=None) -> subprocess.Popen:
+    code = WORKER.format(repo=REPO, tests=os.path.join(REPO, "tests"))
+    return subprocess.Popen([sys.executable, "-c", code, *argv],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env)
+
+
+def finish(procs, timeout: float = 600):
+    """Wait for every process; stop any left. Returns [(rc, launches,
+    stderr)]."""
+    out = []
+    try:
+        for p in procs:
+            so, se = p.communicate(timeout=timeout)
+            res = json.loads(so.strip().splitlines()[-1]) \
+                if p.returncode == 0 else {}
+            if p.returncode != 0 or res.get("rc") != 0:
+                raise RuntimeError(f"CLI process exited {p.returncode}:\n"
+                                   f"{se[-4000:]}")
+            out.append((res["rc"], res["launches"], se))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def phase_restartable() -> dict:
+    """4.6 Mb through the paths of parallel/distributed and an imported
+    index, each on the card with the JAX package's output: a -resume run
+    killed once its first shard committed, then resumed; -t 2 (the two
+    chromosomes on two threads, the device tables laid out once); two
+    processes on the one card (gloo, joined by the CLI from WORLD_SIZE,
+    RANK, MASTER_ADDR, MASTER_PORT); the BWA files of the reference
+    imported with the import subcommand and aligned. Returns {tag: wall}."""
+    import signal
+    from gsalign_tpu_torch.index.io import load_index
+    from gsalign_tpu_torch.ops.rank import DeviceFMIndex
+    from bwa_files import write_bwa_files
+    d = os.path.join(WORK, "4.6mb")
+    idx, qry = f"{d}/idx", f"{d}/qry.fa"
+    walls = {}
+
+    # -resume: kill -9 once the first chromosome's marker is committed
+    t0 = time.time()
+    p = cli_process("-i", idx, "-q", qry, "-o", f"{d}/res", "-resume",
+                    "-t", "1")
+    marker = f"{d}/res.part0.pkl"
+    try:
+        while p.poll() is None and not os.path.exists(marker) \
+                and time.time() - t0 < 600:
+            time.sleep(0.01)
+    finally:
+        if p.poll() is None:
+            os.kill(p.pid, signal.SIGKILL)
+        p.communicate()
+    committed = sorted(f for f in os.listdir(d)
+                       if f.startswith("res.part") and f.endswith(".pkl"))
+    merged = os.path.exists(f"{d}/res.vcf")
+    say(f"[resume] first run killed after {time.time() - t0:.2f} s with "
+        f"markers {committed} committed, merge "
+        f"{'done' if merged else 'not reached'}")
+    fns = counters()
+    for fn in fns.values():
+        fn.launches = 0
+    t0 = time.time()
+    log = run_cli("-i", idx, "-q", qry, "-o", f"{d}/res", "-resume")
+    walls["resume"] = time.time() - t0
+    launches = {k: f.launches for k, f in fns.items()}
+    shard_outputs("resume", f"{d}/res", None, EXPECT_46)
+    # the restart recomputes only the chromosomes without a marker (all of
+    # them where the merge had consumed the markers)
+    n_chr = sum(1 for ln in read(qry).split(b"\n") if ln.startswith(b">"))
+    redone = log.count("Process query chromosome:")
+    if redone != (n_chr if merged else n_chr - len(committed)) or \
+            (redone and launches["seed_scan"] <= 0):
+        raise AssertionError(f"resume: {redone} chromosomes recomputed with "
+                             f"{committed} committed of {n_chr}")
+    say(f"[resume] resumed run {walls['resume']:.2f} s, {redone} "
+        f"chromosome(s) recomputed, kernel launches {launches}")
+
+    # -t 2: two threads, one chromosome each, launching on one card
+    laid_out = []
+    real = DeviceFMIndex.host_tables
+
+    def counting(fm):
+        laid_out.append(fm)
+        return real(fm)
+    DeviceFMIndex.host_tables = staticmethod(counting)
+    for fn in fns.values():
+        fn.launches = 0
+    try:
+        t0 = time.time()
+        log = run_cli("-i", idx, "-q", qry, "-o", f"{d}/thr", "-t", "2")
+        walls["t2"] = time.time() - t0
+    finally:
+        DeviceFMIndex.host_tables = staticmethod(real)
+    launches = {k: f.launches for k, f in fns.items()}
+    shard_outputs("t2", f"{d}/thr", log, EXPECT_46)
+    say(f"[t2] wall {walls['t2']:.2f} s, device tables laid out "
+        f"{len(laid_out)} time(s), kernel launches {launches}")
+    if len(laid_out) != 1:
+        raise AssertionError(f"-t 2 laid the tables out {len(laid_out)} "
+                             f"times")
+    missing = [k for k in ("dp_small", "dp_any", "seed_scan")
+               if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"-t 2: {missing} never ran: {launches}")
+
+    # two processes on the one card
+    port = free_port()
+    t0 = time.time()
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, WORLD_SIZE="2", RANK=str(rank),
+                   MASTER_ADDR="localhost", MASTER_PORT=str(port))
+        env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        procs.append(cli_process("-i", idx, "-q", qry, "-o", f"{d}/mp",
+                                 "-t", "1", env=env))
+    res = finish(procs)
+    walls["2proc"] = time.time() - t0
+    log = "".join(se for _, _, se in res)
+    shard_outputs("2proc", f"{d}/mp", log, EXPECT_46)
+    for rank, (_, launches, _) in enumerate(res):
+        say(f"[2proc] rank {rank} kernel launches {launches}")
+        if launches["seed_scan"] <= 0 or launches["dp_small"] <= 0:
+            raise AssertionError(f"2proc rank {rank} launched no seed or "
+                                 f"DP kernel: {launches}")
+    say(f"[2proc] wall {walls['2proc']:.2f} s (two processes started, "
+        f"index loaded and tables laid out in each)")
+
+    # a BWA five-file index of the reference: import, then align
+    fm = load_index(idx)
+    write_bwa_files(f"{d}/bwa", fm.genome, fm.primary, fm.l2)
+    t0 = time.time()
+    run_cli("import", f"{d}/bwa", f"{d}/imp")
+    say(f"[import] BWA files -> {d}/imp in {time.time() - t0:.2f} s")
+    walls["import"] = align_run(
+        "import", d, f"{d}/imp", EXPECT_46,
+        must_launch=("dp_small", "dp_any", "seed_scan"),
+        must_not_launch=("seed_lockstep", "seed_step", "masked_gather",
+                         "resolve_sa"))["wall"]
+    return walls
+
+
+def phase_suffix_array() -> dict:
+    """build_suffix_array_torch on the card against the native SA-IS on
+    the 12 Mb reference's text (24 M rows), each timed."""
+    import torch
+    from gsalign_tpu_torch.genome.fasta import read_fasta
+    from gsalign_tpu_torch.genome.packing import pack_genome
+    from gsalign_tpu_torch.index import suffix_array as tsa
+    codes = pack_genome(read_fasta(f"{WORK}/12mb/ref.fa")).codes_fwd_rc()
+    t0 = time.time()
+    native = tsa.build_suffix_array_native(codes)
+    native_s = time.time() - t0
+    tsa.build_suffix_array_torch(codes[:1 << 16])       # CUDA set-up
+    torch.cuda.synchronize()
+    t0 = time.time()
+    got = tsa.build_suffix_array_torch(codes)
+    torch_s = time.time() - t0
+    if not np.array_equal(got, native):
+        raise AssertionError("build_suffix_array_torch differs from the "
+                             "native SA-IS at 12 Mb")
+    say(f"[sa] {codes.shape[0] + 1} rows: build_suffix_array_torch on the "
+        f"card {torch_s:.3f} s (read-back included), native SA-IS "
+        f"{native_s:.3f} s; equal")
+    return {"torch_s": torch_s, "native_s": native_s}
+
+
+def phase_entry():
+    """entry()'s fn launched once on the card; ops equal to the plain
+    DP's on the same inputs."""
+    from gsalign_tpu_torch import entry
+    from gsalign_tpu_torch.ops import dp as dp_ops
+    from gsalign_tpu_torch.ops import dp_cuda
+    from dp_cases import max_abs_err
+    fn, args = entry.entry()
+    n0 = dp_cuda.dp_small.launches + dp_cuda.dp_any.launches
+    ops = fn(*args).cpu().numpy()
+    n = dp_cuda.dp_small.launches + dp_cuda.dp_any.launches - n0
+    err = max_abs_err(ops, dp_ops.dp_align_batch(*args, entry.L).cpu()
+                      .numpy())
+    if n != 1 or err:
+        raise AssertionError(f"entry(): {n} kernel launches, max |diff| "
+                             f"{err} against the plain DP")
+    say(f"[entry] fn(*example_args) on the card: one launch, "
+        f"{tuple(ops.shape)} ops equal to the plain DP's")
 
 
 def sampled_indexes(d: str):
@@ -1301,15 +1551,23 @@ def main() -> int:
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
         return 0
+    def phase(fn):
+        t0 = time.time()
+        out = fn()
+        say(f"[phase] {fn.__name__} {time.time() - t0:.1f} s")
+        return out
     try:
-        phase_card()
-        totals = phase_kernels()
-        phase_oracle()
-        phase_100kb()
-        runs = phase_46mb()
-        runs.update(phase_12mb())
-        totals.update(phase_seed_kernels())
-        phase_profile()
+        phase(phase_card)
+        totals = phase(phase_kernels)
+        phase(phase_oracle)
+        phase(phase_entry)
+        phase(phase_100kb)
+        runs = phase(phase_46mb)
+        walls = phase(phase_restartable)
+        runs.update(phase(phase_12mb))
+        sa = phase(phase_suffix_array)
+        totals.update(phase(phase_seed_kernels))
+        phase(phase_profile)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     main_path = runs["4.6mb"]["launches"]
@@ -1318,6 +1576,10 @@ def main() -> int:
     say("[summary] " + "; ".join(
         f"{tag}: wall {r['wall']:.2f} s, seed {r['seed_s']:.2f} s, "
         f"iterations {r['iterations']}" for tag, r in runs.items()))
+    say("[summary] 4.6 Mb walls: " + ", ".join(
+        f"{tag} {w:.2f} s" for tag, w in walls.items())
+        + f"; suffix array at 12 Mb: torch on the card {sa['torch_s']:.3f} "
+        f"s, native SA-IS {sa['native_s']:.3f} s")
 
     def entry(name, source, replaces, launches, **more):
         # no single PyTorch call computes any of these functions

@@ -7,7 +7,9 @@ the JAX package's CLI:
     gsalign-tpu-torch [-i prefix | -r ref.fa] -q query.fa -o out [options]
 
 The device comes from GSALIGN_PLATFORM: "cuda" (the default; an error when
-no CUDA device is present) or "cpu".
+no CUDA device is present) or "cpu". -resume, a multi-process job (the
+environment's WORLD_SIZE > 1; see join_process_group) and -t > 1 with
+several query chromosomes run through parallel/distributed.run_distributed.
 """
 
 from __future__ import annotations
@@ -28,6 +30,18 @@ def select_device():
     if plat not in ("cpu", "cuda"):
         raise ValueError(f"GSALIGN_PLATFORM must be cpu or cuda, got {plat!r}")
     return resolve_device("cpu" if plat == "cpu" else None)
+
+
+def join_process_group():
+    """Join the torch.distributed job that the environment names, as
+    torchrun and similar launchers name it (WORLD_SIZE > 1, RANK,
+    MASTER_ADDR, MASTER_PORT), with the gloo backend: the processes
+    exchange only barriers (parallel/distributed.py). Nothing without
+    WORLD_SIZE > 1, or when a group is already initialised."""
+    import torch.distributed as dist
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 and \
+            not dist.is_initialized():
+        dist.init_process_group("gloo", init_method="env://")
 
 
 def show_usage(prog: str, cfg: AlignConfig):
@@ -84,9 +98,19 @@ def main(argv=None) -> int:
         print(f"usage: {prog} index ref.fa prefix", file=sys.stderr)
         return 1
     if args[0] == "import":
-        raise NotImplementedError(
-            "the import subcommand (BWA-format indexes) is not ported yet: "
-            "ROADMAP queue 1 item 6")
+        # convert a reference GSAlign/BWA five-file index (.pac/.ann/.amb/
+        # .bwt/.sa, src/bwt_index.cpp:15-147) to our artifact
+        if len(args) == 3:
+            from gsalign_tpu_torch.index.bwa_import import import_bwa_index
+            from gsalign_tpu_torch.index.io import save_index
+            t0 = time.time()
+            fm = import_bwa_index(args[1])
+            save_index(fm, args[2])
+            print(f"[import] {args[1]}.pac/.ann/.amb -> {args[2]}.npz "
+                  f"({time.time()-t0:.1f}s)", file=sys.stderr)
+            return 0
+        print(f"usage: {prog} import bwa_prefix out_prefix", file=sys.stderr)
+        return 1
 
     index_prefix = ref_file = query_file = None
     output_prefix = "output"
@@ -167,10 +191,8 @@ def main(argv=None) -> int:
     if (index_prefix is None and ref_file is None) or query_file is None:
         show_usage(prog, cfg)
         return 0
-    if resume:
-        raise NotImplementedError(
-            "-resume is not ported yet: ROADMAP queue 1 item 8")
     device = select_device()
+    join_process_group()
 
     from gsalign_tpu_torch.genome.fasta import read_fasta
     from gsalign_tpu_torch.genome.packing import pack_genome
@@ -197,8 +219,13 @@ def main(argv=None) -> int:
     elif index_prefix is not None and \
             os.path.exists(index_prefix + ".pac") and \
             os.path.exists(index_prefix + ".ann"):
-        raise NotImplementedError(
-            "BWA-format indexes are not ported yet: ROADMAP queue 1 item 6")
+        # -i pointed at a reference GSAlign/BWA five-file index: import it
+        # transparently (the reference's bwa_idx_load path,
+        # src/main.cpp:306 -> src/bwt_index.cpp:147)
+        from gsalign_tpu_torch.index.bwa_import import import_bwa_index
+        print(f"Importing BWA-format index at {index_prefix}...",
+              file=sys.stderr)
+        fm = import_bwa_index(index_prefix, threads=cfg.thread_num)
     if fm is None:
         if ref_file is None:
             print("Please specify a valid reference genome", file=sys.stderr)
@@ -208,9 +235,17 @@ def main(argv=None) -> int:
                            threads=cfg.thread_num)
         save_index(fm, prefix)
 
-    # every -t value goes to the one-device pipeline (host threads only)
-    compare_genomes(fm, query_records, cfg, output_prefix=output_prefix,
-                    device=device)
+    from gsalign_tpu_torch.parallel.distributed import world
+    if resume or world()[1] > 1 or \
+            (cfg.thread_num > 1 and len(query_records) > 1):
+        # restartable / multi-process / threaded path: per-chromosome
+        # shards with atomic commit markers, deterministic merge
+        from gsalign_tpu_torch.parallel.distributed import run_distributed
+        run_distributed(fm, query_records, cfg, output_prefix,
+                        resume=resume, device=device)
+    else:
+        compare_genomes(fm, query_records, cfg, output_prefix=output_prefix,
+                        device=device)
     return 0
 
 

@@ -89,6 +89,7 @@ def pack_bwt_codes(bcodes: np.ndarray,
 
 
 def build_fmindex(genome: Genome, sa_intv: Optional[int] = None,
+                  prefer_device: bool = True,
                   sa_full: Optional[np.ndarray] = None,
                   force_wide: bool = False,
                   threads: Optional[int] = None) -> FMIndex:
@@ -104,7 +105,9 @@ def build_fmindex(genome: Genome, sa_intv: Optional[int] = None,
     bwtint_t, src/BWT_Index/bwt.h:36-40) keep int64 checkpoints/SA; the
     device layout splits them into u32 low words + 2-bit carries (see
     ops/rank.DeviceFMIndex). force_wide builds that layout for small
-    genomes too (test path)."""
+    genomes too (test path). prefer_device lets the suffix array fall back
+    to the torch build on the CUDA card where the native SA-IS library
+    cannot be built (index/suffix_array.build_suffix_array)."""
     text = genome.codes_fwd_rc()
     n = int(text.shape[0])
     wide = force_wide or n >= (1 << 31)
@@ -112,7 +115,7 @@ def build_fmindex(genome: Genome, sa_intv: Optional[int] = None,
         sa_intv = 1 if (n <= 640_000_000 and not wide) else 8
     assert sa_intv & (sa_intv - 1) == 0, "sa_intv must be a power of two"
     if sa_full is None:
-        sa_full = build_suffix_array(text)
+        sa_full = build_suffix_array(text, prefer_device=prefer_device)
     assert sa_full.shape[0] == n + 1 and sa_full[0] == n
 
     primary = int(np.nonzero(sa_full == 0)[0][0])

@@ -27,6 +27,7 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _libs: dict = {}
 # per source name: seconds (wall of the parallel build), path, ptxas report
 build_info: dict = {}
@@ -135,6 +136,14 @@ def stream(dev) -> int:
     """The current CUDA stream of device `dev`, as an integer handle."""
     import torch
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+def count(wrapper, field: str = "launches", n: int = 1):
+    """Add n to a kernel wrapper's counter (`wrapper.<field>`). Under a
+    lock: threads that run compare_genomes at once (parallel/distributed)
+    launch through the same wrappers, and `+=` is no atomic update."""
+    with _count_lock:
+        setattr(wrapper, field, getattr(wrapper, field) + n)
 
 
 def raise_on(err: int, name: str):

@@ -141,7 +141,7 @@ def dp_small(q, t, ql, tl, L: int) -> torch.Tensor:
         cuda_build.raise_on(lib.gsalign_dp_small(
             q.data_ptr(), t.data_ptr(), ql.data_ptr(), tl.data_ptr(), B, L,
             out.data_ptr(), K, wpb, cuda_build.stream(q.device)), "dp_small")
-        dp_small.launches += 1
+        cuda_build.count(dp_small)
         dp_small.shapes.append((L, q, t, ql, tl))
     return out
 
@@ -176,7 +176,7 @@ def dp_any(q, t, ql, tl, L: int) -> torch.Tensor:
             q.data_ptr(), t.data_ptr(), ql.data_ptr(), tl.data_ptr(), B, L,
             out.data_ptr(), dirs.data_ptr(), rows.data_ptr(), K, wpb, cs,
             cuda_build.stream(q.device)), "dp_any")
-        dp_any.launches += 1
+        cuda_build.count(dp_any)
         dp_any.shapes.append((L, q, t, ql, tl))
     return out
 

@@ -61,7 +61,7 @@ def masked_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         cuda_build.raise_on(lib.gsalign_masked_gather(
             table.data_ptr(), idx.data_ptr(), K, out.data_ptr(),
             cuda_build.stream(idx.device)), "masked_gather")
-        masked_gather.launches += 1
+        cuda_build.count(masked_gather)
     return out
 
 

@@ -29,6 +29,7 @@ kernel (ops/seed_cuda.py).
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Optional
 
 import numpy as np
@@ -52,6 +53,9 @@ SA_ROW_BLOCK = 1024   # sa_rows is padded to a multiple of this many entries
 M32 = 0xFFFFFFFF
 # the tables of 32-bit words, torch.int32 on the device
 WORD_TABLES = ("union", "t3", "t3_major", "text_rows")
+# held while from_host lays out an index's tables, so that threads asking
+# for the same tables at once lay them out once
+_TABLES_LOCK = threading.Lock()
 
 
 def widen(words: torch.Tensor) -> torch.Tensor:
@@ -214,11 +218,26 @@ class DeviceFMIndex:
     @staticmethod
     def from_host(fm: FMIndex, device=None) -> "DeviceFMIndex":
         """Build the tables on the host and put them on `device` (None:
-        the CUDA card, an error without one; "cpu": the CPU)."""
-        tabs = DeviceFMIndex.host_tables(fm)
-        return DeviceFMIndex.from_tables(
-            tabs, host_sa=np.asarray(fm.sa_samples) if tabs["direct_ok"]
-            else None, seq_len=fm.seq_len, primary=fm.primary, device=device)
+        the CUDA card, an error without one; "cpu": the CPU).
+
+        The tables are laid out once per index and device and kept on the
+        FMIndex (as the JAX package keeps its own): a later call for the
+        same `fm` and device returns the same DeviceFMIndex. The layout
+        runs under a lock, so threads that ask at once lay it out once."""
+        dev = resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        with _TABLES_LOCK:
+            cache = fm.__dict__.setdefault("_device_tables", {})
+            dfm = cache.get(str(dev))
+            if dfm is None:
+                tabs = DeviceFMIndex.host_tables(fm)
+                dfm = DeviceFMIndex.from_tables(
+                    tabs, host_sa=np.asarray(fm.sa_samples)
+                    if tabs["direct_ok"] else None, seq_len=fm.seq_len,
+                    primary=fm.primary, device=dev)
+                cache[str(dev)] = dfm
+        return dfm
 
     @staticmethod
     def from_tables(tabs: dict, host_sa: Optional[np.ndarray], seq_len: int,

@@ -210,7 +210,7 @@ def seed_scan(dfm, q_rows: torch.Tensor, lanes, prm) -> np.ndarray:
     if lanes.st.shape[1]:
         cuda_build.raise_on(build().gsalign_seed_scan(
             ctypes.byref(args), cuda_build.stream(dev)), "seed_scan")
-        seed_scan.launches += 1
+        cuda_build.count(seed_scan)
     st = lanes.read_back()[0]
     over = np.flatnonzero(st[seeding.F_STEPS] < 0)
     if over.size:
@@ -322,10 +322,12 @@ def seed_lockstep(dfm, q_rows: torch.Tensor, lanes, prm, max_iters: int = 0,
     if lanes.max_len > 0:
         launch_lockstep(build(), cuda_build.stream(dev), dfm, q_rows, lanes,
                         prm, max_iters, max_blocks)
-        seed_lockstep.launches += 1
+        cuda_build.count(seed_lockstep)
     st, counters = lanes.read_back()
-    seed_lockstep.gathered += int(counters[seeding.C_GATHERED])
-    seed_lockstep.stalled += int(counters[seeding.C_STALLED])
+    cuda_build.count(seed_lockstep, "gathered",
+                     int(counters[seeding.C_GATHERED]))
+    cuda_build.count(seed_lockstep, "stalled",
+                     int(counters[seeding.C_STALLED]))
     if max_iters <= 0 and counters[seeding.C_LIVE] > 0:
         raise RuntimeError(f"seed_lockstep: {counters[seeding.C_LIVE]} lanes "
                            f"still live at the iteration limit "
@@ -385,7 +387,7 @@ def resolve_sa(dfm, k: torch.Tensor) -> torch.Tensor:
         args = _resolve_args(dfm, k, out)
         cuda_build.raise_on(build().gsalign_resolve_sa(
             ctypes.byref(args), cuda_build.stream(dev)), "resolve_sa")
-        resolve_sa.launches += 1
+        cuda_build.count(resolve_sa)
     return out
 
 
@@ -425,7 +427,7 @@ def occ_rows(dfm, k: torch.Tensor, cls: torch.Tensor, triple: torch.Tensor
         cuda_build.raise_on(build().gsalign_occ_rows(
             ctypes.byref(occ_args(dfm, k, cls, triple, out)),
             cuda_build.stream(dev)), "occ_rows")
-        occ_rows.launches += 1
+        cuda_build.count(occ_rows)
     return out
 
 

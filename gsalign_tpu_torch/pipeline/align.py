@@ -100,7 +100,9 @@ def compare_genomes(fm: FMIndex,
                     cfg: AlignConfig,
                     output_prefix: Optional[str] = None,
                     verbose: bool = True,
-                    device=None):
+                    device=None,
+                    write_vcf_file: bool = True,
+                    plot_prefix: Optional[str] = None):
     """Run the full comparison. query_records: [(name, ascii uint8[]), ...].
 
     The two batched device stages — the seed scan and the gap DP — run on
@@ -108,6 +110,12 @@ def compare_genomes(fm: FMIndex,
     "cpu"; everything else is host numpy. On a CUDA device the DP runs in the hand-written kernels
     (ops/dp_cuda.py), on the CPU in their plain torch version. The pass-2 worker threads run host code only: no kernel is
     launched from them.
+
+    write_vcf_file=False leaves `{output_prefix}.vcf` unwritten (the
+    variants stay in the returned collector): parallel/distributed writes
+    one VCF after merging every shard's collector. Dot-plots go to
+    plot_prefix (default output_prefix), so a shard's plots keep the
+    user's prefix.
 
     Returns (RunStats, VariantCollector, [ChromosomeResult]).
     """
@@ -331,7 +339,10 @@ def compare_genomes(fm: FMIndex,
                                       ref_codes=ref_codes_full,
                                       qry_codes=qry_codes)
         if cfg.show_plot and output_prefix:
-            write_dotplot(output_prefix, qname, blocks,
+            # under sharded runs the dotplot keeps the user-facing prefix
+            # (the reference writes {prefix}.gp / {prefix}-{qname}.ps,
+            # src/DotPloting.cpp:47-49, regardless of worker)
+            write_dotplot(plot_prefix or output_prefix, qname, blocks,
                           chr_index, gnuplot_path=cfg.gnuplot_path)
 
         results.append(ChromosomeResult(qname, blocks, n, aln_len_sum,
@@ -341,7 +352,7 @@ def compare_genomes(fm: FMIndex,
     # disk writes (independent files) — the close() join then returns
     # almost immediately instead of serializing ~0.7 s + ~0.9 s tails.
     try:
-        if cfg.emit_vcf and output_prefix:
+        if cfg.emit_vcf and output_prefix and write_vcf_file:
             with timer.stage("variants"):
                 write_vcf(f"{output_prefix}.vcf", collector, genome.names,
                           genome.lengths, reference_name=output_prefix)
@@ -359,7 +370,7 @@ def compare_genomes(fm: FMIndex,
     log(f"\tIt took {int(time.time() - t0)} seconds for genome sequence "
         f"alignment.", verbose)
 
-    if cfg.emit_vcf and output_prefix:
+    if cfg.emit_vcf and output_prefix and write_vcf_file:
         log(f"\nGSAlign identifies {collector.n_snv} SNVs, "
             f"{collector.n_ins} insertions, and {collector.n_del} deletions "
             f"[{output_prefix}.vcf].", verbose)

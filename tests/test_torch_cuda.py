@@ -545,3 +545,37 @@ def test_seed_wrappers_raise_for_other_devices(card):
     with pytest.raises(ValueError, match="one device"):
         gather.masked_gather(torch.zeros(4, dtype=torch.int32, device=card),
                              torch.zeros(2, dtype=torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [70_000, 2_000_000])
+def test_suffix_array_torch_matches_native_on_card(card, n):
+    from gsalign_tpu_torch.index import suffix_array as tsa
+    codes = np.random.default_rng(n).integers(0, 4, n).astype(np.uint8)
+    codes[n // 2: n // 2 + 20_000] = codes[:20_000]        # a long repeat
+    np.testing.assert_array_equal(tsa.build_suffix_array_torch(codes),
+                                  tsa.build_suffix_array_native(codes))
+
+
+@pytest.mark.cuda
+def test_entry_matches_plain_dp_on_card(card):
+    from gsalign_tpu_torch import entry
+    fn, args = entry.entry()
+    assert all(a.device.type == "cuda" for a in args)
+    n0 = dp_cuda.dp_any.launches + dp_cuda.dp_small.launches
+    got = fn(*args).cpu().numpy()
+    assert dp_cuda.dp_any.launches + dp_cuda.dp_small.launches == n0 + 1
+    plain = tdp.dp_align_batch(*args, entry.L).cpu().numpy()
+    assert max_abs_err(got, plain) == 0
+
+
+@pytest.mark.cuda
+def test_device_tables_are_laid_out_once_per_device(card):
+    g, _ = genome_and_queries(3)
+    fm = build_fmindex(g)
+    on_card = rank.DeviceFMIndex.from_host(fm)
+    assert rank.DeviceFMIndex.from_host(fm, card) is on_card
+    assert on_card.device.type == "cuda"
+    on_cpu = rank.DeviceFMIndex.from_host(fm, "cpu")
+    assert on_cpu is not on_card and on_cpu.device.type == "cpu"
+    assert torch.equal(on_cpu.t3, on_card.t3.cpu())

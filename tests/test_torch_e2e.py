@@ -48,10 +48,15 @@ def run_cli(workdir, monkeypatch, capsys, tag, *flags):
 
 
 def counts(log: str):
-    m = re.search(r"Alignment#=(\d+) \(total alignment length=(\d+)\)", log)
+    """((alignments, total alignment length), (SNVs, ins, del) or None)
+    from a run's log. A run through parallel/distributed (-t > 1 with
+    several query chromosomes, -resume) logs an Alignment# line a
+    chromosome shard and no variant line: the alignments are summed."""
+    m = re.findall(r"Alignment#=(\d+) \(total alignment length=(\d+)\)",
+                   log)
     v = re.search(r"identifies (\d+) SNVs, (\d+) insertions, and (\d+) "
                   r"deletions", log)
-    return (int(m.group(1)), int(m.group(2))), \
+    return (sum(int(n) for n, _ in m), sum(int(ln) for _, ln in m)), \
         (tuple(int(x) for x in v.groups()) if v else None)
 
 
@@ -93,12 +98,14 @@ def test_cuda_platform_without_card_raises(workdir, monkeypatch):
                   str(workdir / "qry.fa"), "-o", str(workdir / "x")])
 
 
-@pytest.mark.parametrize("flags,item", [(["-resume"], "queue 1 item 8")])
-def test_unported_options_raise(workdir, monkeypatch, flags, item):
-    monkeypatch.setenv("GSALIGN_PLATFORM", "cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main(["gsalign-tpu-torch", "-i", str(workdir / "idx"), "-q",
-                  str(workdir / "qry.fa"), "-o", str(workdir / "r"),
-                  *flags])
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        cli.main(["gsalign-tpu-torch", "import", "a", "b"])
+def test_resume_flag_gives_golden_bytes(workdir, monkeypatch, capsys):
+    """-resume (once raising NotImplementedError) runs through
+    parallel/distributed and writes the goldens; a second -resume run over
+    the same prefix gives them again."""
+    for _ in range(2):
+        prefix, log = run_cli(workdir, monkeypatch, capsys, "r", "-resume")
+        assert counts(log)[0] == (3, 90130)
+        assert read(prefix + ".maf") == golden("g_default.maf")
+        assert strip_reference_line(read(prefix + ".vcf")) == \
+            strip_reference_line(golden("g_default.vcf"))
+        assert not list(workdir.glob("r.part*"))

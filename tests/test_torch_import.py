@@ -37,7 +37,8 @@ def test_port_sources_do_not_import_jax():
     pat = re.compile(r"^\s*(import jax|from jax|import gsalign_tpu\b|"
                      r"from gsalign_tpu[ .])", re.M)
     paths = [os.path.join(REPO, f) for f in (
-        "chip_smoke.py", "tests/dp_cases.py", "tests/test_torch_cuda.py")]
+        "chip_smoke.py", "tests/dp_cases.py", "tests/test_torch_cuda.py",
+        "tests/torch_dist_worker.py")]
     for dirpath, _, files in os.walk(os.path.join(REPO, "gsalign_tpu_torch")):
         paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     offenders = []
