@@ -57,7 +57,18 @@ Phases (each raises on failure; nothing is caught):
      by iteration; seed_scan on the wide index; resolve_sa (16 threads a
      rank narrow, 32 wide) on every rank the 12 Mb sampled and wide runs
      resolve, against the full suffix array too;
-  7. the seed stage's device operations per scan in both SA modes, under
+  7. the mesh (parallel/mesh.py) on the one card, four entries of it, a CUDA
+     stream each: 4.6 Mb through compare_genomes with the seed lanes and the
+     DP problems in four stripes, in xla mode and, in a process of its own
+     under a time limit, in pallas mode (the lock-step stripes in turn on
+     one stream) and with the index's rows cut in four; 12 Mb sa_intv=8 and
+     forced-wide with t3 and sa_samples in four row blocks; each with the
+     unsharded runs' output, one scan launch a stripe and four DP launches
+     for each of the unsharded run's; the row-sharded instances of
+     seed_scan, seed_lockstep and resolve_sa against their plain versions
+     on the cut tables and timed beside the whole-table instances;
+     dryrun_multichip(4);
+  8. the seed stage's device operations per scan in both SA modes, under
      torch.profiler.
 wide-big: a 1,080,000,000-base random genome (2N = 2.16e9 > 2^31; the
 JAX package's tests/test_wide_e2e.py), its index built once; a 200 kb
@@ -424,6 +435,29 @@ def counters():
             "seed_lockstep": seed_cuda.seed_lockstep,
             "seed_step": seed_cuda.seed_step,
             "resolve_sa": seed_cuda.resolve_sa}
+
+
+# the kernels with a row-sharded instance (csrc/seed.cu ShardedTable),
+# counted by their wrapper's .sharded_launches
+SHARDED = ("seed_scan", "seed_lockstep", "resolve_sa")
+
+
+def zero_counts():
+    fns = counters()
+    for fn in fns.values():
+        fn.launches = 0
+    for name in SHARDED:
+        fns[name].sharded_launches = 0
+
+
+def launch_counts() -> dict:
+    """{kernel: launches} of every wrapper, and {kernel_sharded: launches}
+    of each row-sharded instance."""
+    fns = counters()
+    out = {name: fn.launches for name, fn in fns.items()}
+    out.update({f"{name}_sharded": fns[name].sharded_launches
+                for name in SHARDED})
+    return out
 
 
 @contextlib.contextmanager
@@ -1202,6 +1236,8 @@ def phase_seed_kernels() -> dict:
              for tag, dfm, queries in (("4.6mb", dfm46, q46),
                                        ("12mb", dfm12, q12),
                                        ("12mb-sa8", dfm8, q8))}
+    CASES.update({"4.6mb": (dfm46, q46, scans["4.6mb"]),
+                  "12mb-sa8": (dfm8, q8, scans["12mb-sa8"])})
     totals["seed_scan"] = scans["4.6mb"][0]       # the main path's shapes
 
     # seed_lockstep against the host loop of the plain step: in xla mode at
@@ -1244,7 +1280,15 @@ def phase_seed_kernels() -> dict:
     resolve_check("12mb-sa8", dfm8, q8, dfm12.host_sa)
     totals["resolve_sa"] = resolve_check("12mb-wide", dfmw, qw,
                                          dfm12.host_sa)
+    CASES["12mb-wide"] = (dfmw, qw, scans["12mb-wide"])
+    CASES["bounds"] = dict(totals)
     return totals
+
+
+# phase_seed_kernels' indexes, queries and scan_check results by tag, and
+# its totals ("bounds"), which phase_mesh holds the row-sharded instances
+# against
+CASES: dict = {}
 
 
 def hit_ranks_of(dfm, queries):
@@ -1315,6 +1359,299 @@ def resolve_check(tag: str, dfm, queries, full_sa=None) -> dict:
         f"{steps * RANK_OPS} operations)  equal to the plain version"
         + ("" if full_sa is None else " and to the full SA"))
     return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, **bnd}
+
+
+MESH_ENTRIES = 4     # the card four times, a stream each (parallel/mesh.py)
+
+
+def mesh_run(tag: str, d: str, idx: str, expect: dict, sa_mode=None,
+             row_shard: bool = False) -> dict:
+    """compare_genomes on the card over a MESH_ENTRIES-entry mesh (with
+    row_shard: the index's t3 and sa_samples cut into MESH_ENTRIES row
+    blocks, the lanes whole), GSALIGN_SA_MODE sa_mode, -t 1. Launch counts
+    start at 0 just before the run and are read just after. Checks the
+    outputs against `expect`. Returns {launches, wall, scan_launches,
+    iterations}."""
+    import torch
+    from gsalign_tpu_torch.config import AlignConfig
+    from gsalign_tpu_torch.genome.fasta import read_fasta
+    from gsalign_tpu_torch.index.io import load_index
+    from gsalign_tpu_torch.parallel.mesh import make_mesh
+    from gsalign_tpu_torch.pipeline.align import compare_genomes
+    fm = load_index(idx)
+    records = read_fasta(f"{d}/qry.fa")
+    mesh = make_mesh([torch.device("cuda")] * MESH_ENTRIES)
+    zero_counts()
+    t0 = time.time()
+    with sa_mode_env(sa_mode):
+        stats, coll, _ = compare_genomes(
+            fm, records, AlignConfig(thread_num=1),
+            output_prefix=f"{d}/{tag}", verbose=False, mesh=mesh,
+            shard_index_rows=row_shard)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = launch_counts()
+    got = {
+        "alignments": stats.local_alignment_num,
+        "aln_len": stats.total_alignment_length, "ani": f"{stats.ani:.2f}",
+        "snv": coll.n_snv, "ins": coll.n_ins, "del": coll.n_del,
+        "maf_sha256": hashlib.sha256(read(f"{d}/{tag}.maf")).hexdigest(),
+        "vcf_sha256_no_reference_line": hashlib.sha256(
+            strip_reference_line(read(f"{d}/{tag}.vcf"))).hexdigest(),
+    }
+    say(f"[mesh] {tag}: {mesh}, {'row blocks' if row_shard else 'stripes'}"
+        f", align wall {wall:.2f} s (load_index and table layout "
+        f"included); scan launches per round {stats.seed_scan_launches}, "
+        f"iterations per round {stats.seed_scan_iterations}; kernel "
+        f"launches {launches}")
+    if got != expect:
+        raise AssertionError(f"{tag}: outputs {got} differ from the "
+                             f"unsharded run's {expect}")
+    return {"launches": launches, "wall": wall,
+            "scan_launches": stats.seed_scan_launches,
+            "iterations": stats.seed_scan_iterations}
+
+
+# calls of this module's functions in a process of their own, which prints
+# their results as its last stdout line: a cooperative launch that never
+# ends then stops the process at its time limit, not this one
+MESH_WORKER = """
+import json, os, sys
+sys.path[:0] = [{repo!r}, {tests!r}]
+import chip_smoke
+print(json.dumps([getattr(chip_smoke, fn)(*a, **kw)
+                  for fn, a, kw in {calls!r}]))
+"""
+
+
+def mesh_runs_apart(calls, timeout: float = 300) -> list:
+    code = MESH_WORKER.format(repo=REPO, tests=os.path.join(REPO, "tests"),
+                              calls=calls)
+    p = subprocess.Popen([sys.executable, "-c", code],
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True)
+    try:
+        so, se = p.communicate(timeout=timeout)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+    for ln in so.splitlines()[:-1]:
+        say(ln)
+    if p.returncode != 0:
+        raise RuntimeError(f"mesh runs {calls} exited {p.returncode}:\n"
+                           f"{se[-4000:]}")
+    return json.loads(so.strip().splitlines()[-1])
+
+
+def sharded_times(run, whole, cut, fresh, reps: int = 5, queued=False):
+    """Mean ms of run(dfm, lanes) on the whole tables and on the row-sharded
+    ones, in turns (whole, cut, cut, whole), each on fresh lanes made before
+    the clock starts: each call on the host clock with its synchronisation
+    (timed), or with queued the launches behind the spin kernel
+    (cuda_ms)."""
+    ms = {"whole": 0.0, "cut": 0.0}
+    for key in ("whole", "cut", "cut", "whole"):
+        dfm = whole if key == "whole" else cut
+        batch = [fresh() for _ in range(reps)]
+        if queued:
+            todo = iter(batch)
+            t = cuda_ms(lambda: run(dfm, next(todo)), reps)
+        else:
+            t = sum(timed(lambda: run(dfm, lanes))[1] for lanes in batch
+                    ) / reps
+        ms[key] += t / 2
+    return ms["whole"], ms["cut"]
+
+
+def sharded_checks() -> dict:
+    """The row-sharded instances against their plain versions (the plain
+    scan, loop and walk reading the same cut tables through t3_row_fetch
+    and plane_fetch) on the inputs of phase_seed_kernels, and timed beside
+    the whole-table instances on the same inputs, in turns: seed_scan on the
+    12 Mb sa_intv=8 index's first round, seed_lockstep in pallas mode on
+    the 4.6 Mb full-SA index's, resolve_sa on the ranks of the 12 Mb
+    forced-wide run. Their bounds are the whole-table instances' (the same
+    bytes and operations). Returns {kernel_sharded: {ms, plain_ms,
+    max_abs_err, bound_ms, bound_by, whole_ms}}."""
+    import dataclasses
+    import torch
+    from gsalign_tpu_torch.ops import cuda_build, rank, seed_cuda, seeding
+    from gsalign_tpu_torch.parallel.mesh import make_mesh, shard_index_rows
+    mesh = make_mesh([torch.device("cuda")] * MESH_ENTRIES)
+    out = {}
+
+    def keep(name, ms, plain_ms, err, bnd, whole_ms, what):
+        out[f"{name}_sharded"] = {
+            "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+            "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"],
+            "whole_ms": whole_ms}
+        say(f"[kernel] {name} row-sharded ({MESH_ENTRIES} blocks) {what}: "
+            f"kernel {ms:.4f} ms beside the whole-table instance's "
+            f"{whole_ms:.4f} ms on the same inputs "
+            f"({100 * (ms / whole_ms - 1):+.1f} %)  plain {plain_ms:.1f} ms  "
+            f"bound "
+            f"{bnd['bound_ms']:.5f} ms ({bnd['bound_by']}, the whole-table "
+            f"instance's: the same bytes)  max |diff| {err}")
+
+    # seed_scan, 12 Mb sa_intv=8
+    dfm, _, (res, (q_rows, starts, stops, prm), p_lanes) = CASES["12mb-sa8"]
+    cut = shard_index_rows(dfm, mesh)
+
+    def fresh():
+        return seeding.ScanLanes.start(starts, stops, prm.max_out,
+                                       q_rows.device)
+    plain = fresh()
+    p_st, plain_ms = timed(lambda: seeding.seed_scan_plain(cut, q_rows,
+                                                           plain, prm))
+    lanes = fresh()
+    st = seed_cuda.seed_scan(cut, q_rows, lanes, prm)
+    err = max(int(np.abs(st - p_st).max()),
+              int((lanes.out - plain.out).abs().max()),
+              int((plain.buf - p_lanes.buf).abs().max()))
+    if err:
+        raise AssertionError(f"seed_scan row-sharded differs from the plain "
+                             f"scan (max |diff| {err})")
+    whole_ms, ms = sharded_times(
+        lambda t, lanes: seed_cuda.seed_scan(t, q_rows, lanes, prm),
+        dfm, cut, fresh)
+    keep("seed_scan", ms, plain_ms, err, res, whole_ms,
+         f"12mb-sa8, {len(starts)} lanes, launch and read-back")
+
+    # seed_lockstep, 4.6 Mb pallas
+    dfm, _, (_, (q_rows, starts, stops, prm), _) = CASES["4.6mb"]
+    prm = dataclasses.replace(prm, sa_mode="pallas")
+    cut = shard_index_rows(dfm, mesh)
+    plain = fresh()
+    plain_ms = timed(lambda: seeding.scan_lockstep(cut, q_rows, plain, prm,
+                                                   plain=True))[1]
+    lanes = fresh()
+    seed_cuda.seed_lockstep(cut, q_rows, lanes, prm)
+    ref = fresh()
+    seed_cuda.seed_lockstep(dfm, q_rows, ref, prm)
+    err = max(int((lanes.buf - plain.buf).abs().max()),
+              int((lanes.out - plain.out).abs().max()),
+              int((ref.buf - plain.buf).abs().max()))
+    if err:
+        raise AssertionError(f"seed_lockstep row-sharded differs from the "
+                             f"plain loop (max |diff| {err})")
+    lib, stream = seed_cuda.build(), cuda_build.stream(q_rows.device)
+    whole_ms, ms = sharded_times(
+        lambda t, lanes: seed_cuda.launch_lockstep(lib, stream, t, q_rows,
+                                                   lanes, prm, 0, None),
+        dfm, cut, fresh, queued=True)
+    keep("seed_lockstep", ms, plain_ms, err, CASES["bounds"]["seed_step"],
+         whole_ms, f"4.6mb pallas, {int(plain.counters[0])} iterations")
+
+    # resolve_sa, the 12 Mb forced-wide run's ranks
+    dfm, queries, _ = CASES["12mb-wide"]
+    cut = shard_index_rows(dfm, mesh)
+    k = hit_ranks_of(dfm, queries)
+    want, plain_ms = timed(lambda: rank.resolve_sa(cut, k))
+    got = seed_cuda.resolve_sa(cut, k)
+    err = max(int((got - want).abs().max()),
+              int((rank.resolve_sa(dfm, k) - want).abs().max()))
+    if err:
+        raise AssertionError(f"resolve_sa row-sharded differs from the plain "
+                             f"walk (max |diff| {err})")
+    whole_ms, ms = sharded_times(lambda t, _: seed_cuda.resolve_sa(t, k),
+                                 dfm, cut, lambda: None, reps=20,
+                                 queued=True)
+    keep("resolve_sa", ms, plain_ms, err, CASES["bounds"]["resolve_sa"],
+         whole_ms, f"12mb-wide, {k.numel()} ranks")
+    return out
+
+
+def mesh_seed_times(mode: str, reps: int = 3) -> list:
+    """find_seeds_all on the 4.6 Mb case (every round, hit expansion and the
+    read-backs included) in SA mode `mode`, without and with the
+    MESH_ENTRIES-entry mesh, in turns (none, mesh, mesh, none) after one
+    untimed run of each, host clock after a synchronise; seeds equal.
+    Returns [none ms, mesh ms]."""
+    import torch
+    from gsalign_tpu_torch.ops import seeding
+    from gsalign_tpu_torch.parallel.mesh import make_mesh
+    dfm, queries = CASES["4.6mb"][:2] if "4.6mb" in CASES \
+        else load_case("4.6mb", "idx")
+    mesh = make_mesh([dfm.device] * MESH_ENTRIES)
+    ms = {None: 0.0, mesh: 0.0}
+    seeds = {}
+    with sa_mode_env(mode):
+        for m in (None, mesh):          # warm-up: a new process's first run
+            seeding.find_seeds_all(dfm, queries, mesh=m)
+        for m in (None, mesh, mesh, None) * reps:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            seeds[m] = seeding.find_seeds_all(dfm, queries, mesh=m)
+            ms[m] += (time.time() - t0) * 1e3 / (2 * reps)
+    if any(not np.array_equal(a, b) for x, y in zip(seeds[None], seeds[mesh])
+           for a, b in zip(x, y)):
+        raise AssertionError(f"4.6mb {mode}: seeds over the mesh differ")
+    say(f"[mesh] 4.6mb seed stage {mode}: {ms[None]:.2f} ms without a "
+        f"mesh, {ms[mesh]:.2f} ms over {MESH_ENTRIES} entries of the card "
+        f"({2 * reps} runs each, in turns); seeds equal")
+    return [ms[None], ms[mesh]]
+
+
+def phase_mesh(card: str, runs: dict) -> dict:
+    """The mesh (parallel/mesh.py) on the one card, MESH_ENTRIES entries of
+    it, a stream each: 4.6 Mb with the lanes and the DP problems in
+    stripes, xla mode here and pallas mode (with a row-sharded pallas run)
+    in a process of its own under a time limit; 12 Mb sa_intv=8 and
+    forced-wide over row blocks; each with the unsharded runs' bytes, a
+    scan launch a stripe and DP launches MESH_ENTRIES times the unsharded
+    run's. Then the row-sharded instances against their plain versions
+    (sharded_checks) and dryrun_multichip(MESH_ENTRIES). Returns {"runs":
+    {tag: mesh_run result}, "kernels": sharded_checks result}."""
+    from gsalign_tpu_torch.entry import dryrun_multichip
+    d46, d12 = os.path.join(WORK, "4.6mb"), os.path.join(WORK, "12mb")
+    out = {"4.6mb-mesh": mesh_run("4.6mb-mesh", d46, f"{d46}/idx",
+                                  EXPECT_46)}
+    t0 = time.time()
+    apart = mesh_runs_apart([
+        ("mesh_run", ("4.6mb-mesh-pallas", d46, f"{d46}/idx", EXPECT_46),
+         {"sa_mode": "pallas"}),
+        ("mesh_run", ("4.6mb-rows-pallas", d46, f"{d46}/idx", EXPECT_46),
+         {"sa_mode": "pallas", "row_shard": True}),
+        ("mesh_seed_times", ("pallas",), {})])
+    say(f"[mesh] the pallas runs' process: {time.time() - t0:.1f} s")
+    out["4.6mb-mesh-pallas"], out["4.6mb-rows-pallas"], _ = apart
+    out["12mb-sa8-rows"] = mesh_run("12mb-sa8-rows", d12, f"{d12}/idx8",
+                                    EXPECT_12, row_shard=True)
+    out["12mb-wide-rows"] = mesh_run("12mb-wide-rows", d12, f"{d12}/idxw",
+                                     EXPECT_12, row_shard=True)
+    for tag, base in (("4.6mb-mesh", "4.6mb"),
+                      ("4.6mb-mesh-pallas", "4.6mb-pallas"),
+                      ("4.6mb-rows-pallas", "4.6mb-pallas"),
+                      ("12mb-sa8-rows", "12mb-sa8"),
+                      ("12mb-wide-rows", "12mb-wide")):
+        r, b = out[tag], runs[base]["launches"]
+        n = r["launches"]
+        rows = "rows" in tag
+        scan = "seed_lockstep" if "pallas" in tag else "seed_scan"
+        checks = {
+            # one scan a stripe that holds lanes; the row-sharded scan one
+            # a round, by the sharded instance alone
+            "scan": n[scan + ("_sharded" if rows else "")]
+            == sum(r["scan_launches"]),
+            "stripes": rows or r["scan_launches"][0] == MESH_ENTRIES,
+            "whole scan unused": not rows or n[scan] == 0,
+            "resolve": n["resolve_sa_sharded" if rows else "resolve_sa"]
+            == b["resolve_sa"],
+            "dp": all(n[k] == MESH_ENTRIES * b[k]
+                      for k in ("dp_small", "dp_any")),
+        }
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"{tag}: launches {n} fail {failed} against "
+                                 f"the unsharded run's {b}")
+    kernels = sharded_checks()
+    mesh_seed_times("xla")
+    t0 = time.time()
+    dryrun_multichip(MESH_ENTRIES)
+    say(f"[mesh] dryrun_multichip({MESH_ENTRIES}) {time.time() - t0:.2f} s")
+    say(f"[mesh] card: {card}")
+    return {"runs": out, "kernels": kernels}
 
 
 def phase_profile():
@@ -1551,13 +1888,13 @@ def main() -> int:
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
         return 0
-    def phase(fn):
+    def phase(fn, *args):
         t0 = time.time()
-        out = fn()
+        out = fn(*args)
         say(f"[phase] {fn.__name__} {time.time() - t0:.1f} s")
         return out
     try:
-        phase(phase_card)
+        card = phase(phase_card)
         totals = phase(phase_kernels)
         phase(phase_oracle)
         phase(phase_entry)
@@ -1567,6 +1904,8 @@ def main() -> int:
         runs.update(phase(phase_12mb))
         sa = phase(phase_suffix_array)
         totals.update(phase(phase_seed_kernels))
+        mesh = phase(phase_mesh, card, runs)
+        totals.update(mesh["kernels"])
         phase(phase_profile)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
@@ -1576,6 +1915,9 @@ def main() -> int:
     say("[summary] " + "; ".join(
         f"{tag}: wall {r['wall']:.2f} s, seed {r['seed_s']:.2f} s, "
         f"iterations {r['iterations']}" for tag, r in runs.items()))
+    say("[summary] mesh: " + "; ".join(
+        f"{tag}: wall {r['wall']:.2f} s, scan launches {r['scan_launches']}"
+        for tag, r in mesh["runs"].items()) + f" ({card})")
     say("[summary] 4.6 Mb walls: " + ", ".join(
         f"{tag} {w:.2f} s" for tag, w in walls.items())
         + f"; suffix array at 12 Mb: torch on the card {sa['torch_s']:.3f} "
@@ -1613,6 +1955,20 @@ def main() -> int:
         # the slice's main path for resolve_sa: the forced-wide 12 Mb run
         entry("resolve_sa", "seed.cu", "gsalign_tpu/ops/rank.py:625",
               runs["12mb-wide"]["launches"]["resolve_sa"]),
+        # the row-sharded instances (t3 and sa_samples read by blocks, the
+        # JAX package's masked gather and psum at rank.py:468 and :485),
+        # with their launches on the mesh phase's row-sharded runs
+        entry("seed_scan_sharded", "seed.cu", "gsalign_tpu/ops/seeding.py:644",
+              mesh["runs"]["12mb-sa8-rows"]["launches"]["seed_scan_sharded"],
+              kernel="seed_scan"),
+        entry("seed_lockstep_sharded", "seed.cu",
+              "gsalign_tpu/ops/seeding.py:644",
+              mesh["runs"]["4.6mb-rows-pallas"]["launches"][
+                  "seed_lockstep_sharded"], kernel="seed_lockstep"),
+        entry("resolve_sa_sharded", "seed.cu",
+              "gsalign_tpu/ops/seeding.py:674",
+              mesh["runs"]["12mb-wide-rows"]["launches"][
+                  "resolve_sa_sharded"], kernel="resolve_sa"),
     ]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

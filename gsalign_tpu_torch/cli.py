@@ -10,6 +10,9 @@ The device comes from GSALIGN_PLATFORM: "cuda" (the default; an error when
 no CUDA device is present) or "cpu". -resume, a multi-process job (the
 environment's WORLD_SIZE > 1; see join_process_group) and -t > 1 with
 several query chromosomes run through parallel/distributed.run_distributed.
+On a host with more than one visible card the seed lanes and the DP
+problems are split over all of them (parallel/mesh.local_mesh); no flag
+asks for it, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -236,16 +239,20 @@ def main(argv=None) -> int:
         save_index(fm, prefix)
 
     from gsalign_tpu_torch.parallel.distributed import world
+    from gsalign_tpu_torch.parallel.mesh import local_mesh
+    # a host with several cards: seed lanes and DP problems over all of
+    # them (the outputs are byte-identical for any number)
+    mesh = local_mesh(device)
     if resume or world()[1] > 1 or \
             (cfg.thread_num > 1 and len(query_records) > 1):
         # restartable / multi-process / threaded path: per-chromosome
         # shards with atomic commit markers, deterministic merge
         from gsalign_tpu_torch.parallel.distributed import run_distributed
         run_distributed(fm, query_records, cfg, output_prefix,
-                        resume=resume, device=device)
+                        resume=resume, device=device, mesh=mesh)
     else:
         compare_genomes(fm, query_records, cfg, output_prefix=output_prefix,
-                        device=device)
+                        device=device, mesh=mesh)
     return 0
 
 

@@ -29,6 +29,18 @@
 //                  on any path; the tests hold it against the plain occ_t3
 //                  on rows whose checkpoints no small genome reaches.
 //
+// Each kernel but occ_rows reads its tables whole (WholeTable) or, on an
+// index whose t3 and sa_samples rows are cut into blocks, one block a mesh
+// entry (ops/rank.RowShards, parallel/mesh.shard_index_rows), through the
+// blocks' addresses (ShardedTable) <- the JAX package's row-sharded mode
+// (gsalign_tpu/ops/rank.py _t3_row_fetch and _plane_fetch inside
+// seeding.py _rowshard_scan and _rowshard_resolve), where every device
+// gathers the rows it owns, masked, and a psum over the mesh assembles
+// them. A run-to-completion kernel has no collective a step: it reads row
+// r from the block that owns it, row r % rows of block r / rows, which is
+// that sum (the owner's row plus zeros). Each is a template instance of its
+// own, so the whole-table instances are the code they were.
+//
 // Two t3 row layouts (ops/rank.py): narrow, 64 words plus a major row every
 // 256 rows, and wide (seq_len >= 2^31), 100 words of u32 low checkpoints,
 // 2-bit carries and symbols, no major rows. Both are a policy (NarrowRows,
@@ -115,6 +127,18 @@ typedef unsigned long long u64;
 
 // The argument structs of the C entry points (outside the anonymous
 // namespace: the entry points that take them have external linkage).
+
+// A table's rows cut into equal blocks, one a mesh entry, the last
+// zero-padded (ops/rank.RowShards): row r is row r % rows of block r / rows.
+// rows == 0: the table is read whole from its own pointer. A table that is
+// not cut in a sharded run is one block of all its rows. Must match
+// ops/seed_cuda._Shards.
+constexpr int kMaxShards = 8;
+struct Shards {
+  const void* block[kMaxShards];
+  long long rows;          // rows a block
+};
+
 // Must match ops/seed_cuda._SeedArgs field for field.
 struct SeedArgs {
   const u32* q_rows;       // [R, 64]: 32 packed code words | 32 ambiguity words
@@ -144,6 +168,7 @@ struct SeedArgs {
   // the row layout (0 narrow, 1 wide); in comb_pairs, the first INIT-order
   // row and (wide) the offset of the sz plane from the lo plane
   i64 wide, comb_init_off, comb_half;
+  Shards t3_shards;        // t3 by blocks (rows > 0), else read from t3
 };
 
 // Must match ops/seed_cuda._ResolveArgs field for field.
@@ -159,6 +184,8 @@ struct ResolveArgs {
   i64* out;                // [n] SA values out
   i64 n, primary, seq_len, sa_intv;
   i64 wide;                // row layout (0 narrow, 1 wide)
+  Shards t3_shards;        // by blocks (t3_shards.rows > 0: both are), else
+  Shards sa_shards;        // t3 and sa / sa64 are read whole
 };
 
 // Must match ops/seed_cuda._OccArgs field for field.
@@ -362,6 +389,25 @@ __device__ __forceinline__ int carry_sum(u32 word, int w, int cls,
   return __popc(x & 0x55555555u) + 2 * __popc(x & 0xAAAAAAAAu);
 }
 
+// Where row r of a table of `width`-element rows lies: at base + r * width
+// (WholeTable), or in the block that owns it (ShardedTable). Row indices and
+// offsets are int64: a wide t3 passes 2^31 rows' words.
+struct WholeTable {
+  template <class T>
+  __device__ __forceinline__ static const T* row(const T* base,
+                                                 const Shards&, i64 r,
+                                                 i64 width) {
+    return base + r * width;
+  }
+};
+struct ShardedTable {
+  template <class T>
+  __device__ __forceinline__ static const T* row(const T*, const Shards& s,
+                                                 i64 r, i64 width) {
+    return static_cast<const T*>(s.block[r / s.rows]) + (r % s.rows) * width;
+  }
+};
+
 template <class Rows, int G>
 struct RowGroup {
   static constexpr int V = 32 / G;
@@ -369,12 +415,10 @@ struct RowGroup {
   Words<V> minor;      // narrow: the minor region; wide: the carry words
   Words<V> sym;        // the symbol region
 
-  // Rank k's row, the words thread t of the group holds: one round trip
-  // of independent loads (addresses in int64: a wide table passes 2^32
-  // words).
-  __device__ __forceinline__ void load(const u32* t3, const int32_t* major,
+  // Rank k's row (at `row`, which Table::row found), the words thread t of
+  // the group holds: one round trip of independent loads.
+  __device__ __forceinline__ void load(const u32* row, const int32_t* major,
                                        i64 k, int t) {
-    const u32* row = t3 + (k >> 7) * Rows::kWords;
     const int o = t * V;
     if constexpr (Rows::kWide) {
       cp[0].load(row + o);
@@ -461,8 +505,8 @@ __device__ __forceinline__ u32 mismatch_mask(u32 tw, u32 qw, u32 aw) {
 // ---- the scans' memory policy: a warp, the small tables in shared
 // memory, rank rows and text rows by coalesced loads; the lane's query
 // window in shared memory too (kStaged) or read from q_rows; the rank rows
-// in the layout Rows ----
-template <bool kStaged, class Rows>
+// in the layout Rows, from the whole t3 or its blocks (Table) ----
+template <bool kStaged, class Rows, class Table>
 struct WarpMem {
   const SeedArgs& a;
   // shared: comb_pairs' 136 class rows (packed lo | sz << 32), or on a
@@ -523,9 +567,13 @@ struct WarpMem {
   __device__ __forceinline__ void occ_pair(i64 ka, i64 kb, bool triple,
                                            int cls, i64& tk, i64& tl) const {
     RowGroup<Rows, 32> ra, rb;
-    ra.load(a.t3, a.t3_major, ka, t);
-    if ((kb >> 7) != (ka >> 7)) rb.load(a.t3, a.t3_major, kb, t);   // uniform
-    else rb = ra;
+    ra.load(Table::row(a.t3, a.t3_shards, ka >> 7, Rows::kWords), a.t3_major,
+            ka, t);
+    if ((kb >> 7) != (ka >> 7))                                      // uniform
+      rb.load(Table::row(a.t3, a.t3_shards, kb >> 7, Rows::kWords),
+              a.t3_major, kb, t);
+    else
+      rb = ra;
     tk = group_sum<Rows, 32>(
              kFull, ra.part(t, static_cast<int>(ka & 127), cls, triple)) +
          exc_corr(exc_pos, exc_chr, ka, triple, cls);
@@ -763,7 +811,7 @@ __device__ __forceinline__ i64 stage_window(const SeedArgs& a, u32* win,
 // Heads::kScanHead 64-bit words, then per warp 2 * win_words 32-bit words.
 // A lane that would take more than step_cap steps stops with F_STEPS = -1,
 // which the wrapper turns into an exception.
-template <class Rows>
+template <class Rows, class Table>
 __global__ void __launch_bounds__(kScanWarps * 32)
 seed_scan_kernel(const SeedArgs a) {
   u64* shared64 = seeddev::dyn_smem64();
@@ -778,8 +826,8 @@ seed_scan_kernel(const SeedArgs a) {
              static_cast<i64>(warp) * 2 * a.win_words;
   const i64 base = stage_window(a, win, start, t);
 
-  const WarpMem<true, Rows> m{a, tb.comb_tail, tb.corr, tb.exc_pos,
-                              tb.exc_chr, win, base, t, false, 0};
+  const WarpMem<true, Rows, Table> m{a, tb.comb_tail, tb.corr, tb.exc_pos,
+                                     tb.exc_chr, win, base, t, false, 0};
   Lane s;
   load_lane(s, a.state, a.B, b);
   while (lane_live(s, stop)) {
@@ -840,7 +888,7 @@ __device__ __forceinline__ void lockstep_lane(Lane& s, const SeedArgs& a,
 // whether the loop goes on, the same for every block) and steps its lanes.
 // Two parities suffice: a block writes parity p again only after the
 // barrier in between, which no block passes before all have read.
-template <bool kStaged, class Rows>
+template <bool kStaged, class Rows, class Table>
 __global__ void __launch_bounds__(kLockWarps * 32)
 seed_lockstep_kernel(const SeedArgs a) {
   u64* shared64 = seeddev::dyn_smem64();
@@ -854,8 +902,8 @@ seed_lockstep_kernel(const SeedArgs a) {
   const i64 hi = min(lo + a.lanes_per_warp, a.B);
   const bool pallas = a.mode == kModePallas;
 
-  WarpMem<kStaged, Rows> m{a, tb.comb_tail, tb.corr, tb.exc_pos,
-                           tb.exc_chr, nullptr, 0, t, false, 0};
+  WarpMem<kStaged, Rows, Table> m{a, tb.comb_tail, tb.corr, tb.exc_pos,
+                                  tb.exc_chr, nullptr, 0, t, false, 0};
   Lane s;                          // kStaged: this warp's one lane
   i64 start = 0, stop = 0;
   u32 need = 0, live = 0;          // this warp's lanes, for the next step
@@ -947,12 +995,12 @@ seed_lockstep_kernel(const SeedArgs a) {
 
 // The SA values of ranks k: each rank's LF walk (ops/rank.lf_t3) to its
 // sampled row by a group of Rows::kGroup threads, kResolveThreads threads a
-// block.
+// block; t3 and the samples whole or by blocks (Table).
 // LF(k) = l2[c] + 1 + the strict single-mode rank of c at k, for c the char
 // before row k's suffix; the SA == 0 row (the primary) maps to row 0. The
 // SA < 3 rows store symbol 0: their char comes from t3_exc_chr, except the
 // primary's (stored as 255), which is never used.
-template <class Rows>
+template <class Rows, class Table>
 __global__ void __launch_bounds__(kResolveThreads)
 resolve_sa_kernel(const ResolveArgs a) {
   constexpr int G = Rows::kGroup;
@@ -973,7 +1021,8 @@ resolve_sa_kernel(const ResolveArgs a) {
   i64 k = a.k[i], steps = 0;
   while (k & intv_mask) {
     RowGroup<Rows, G> row;
-    row.load(a.t3, a.t3_major, k, t);
+    row.load(Table::row(a.t3, a.t3_shards, k >> 7, Rows::kWords), a.t3_major,
+             k, t);
     const int m = static_cast<int>(k & 127);
     int c = (row.sym_word(mask, lane & ~(G - 1), m >> 2) >>
              ((3 - (m & 3)) * 8)) & 3;
@@ -988,8 +1037,9 @@ resolve_sa_kernel(const ResolveArgs a) {
   }
   if (t == 0) {
     const i64 s = k >> (__ffsll(a.sa_intv) - 1);
-    a.out[i] = (steps + (Rows::kWide ? a.sa64[s] : a.sa[s])) %
-               (a.seq_len + 1);
+    const i64 base = Rows::kWide ? *Table::row(a.sa64, a.sa_shards, s, 1)
+                                 : *Table::row(a.sa, a.sa_shards, s, 1);
+    a.out[i] = (steps + base) % (a.seq_len + 1);
   }
 }
 
@@ -1008,7 +1058,7 @@ occ_rows_kernel(const OccArgs a) {
   const bool triple = a.triple[i] != 0;
   const int m = static_cast<int>(k & 127);
   RowGroup<Rows, G> row;
-  row.load(a.t3, a.t3_major, k, t);
+  row.load(a.t3 + (k >> 7) * Rows::kWords, a.t3_major, k, t);
   const i64 rank =
       group_sum<Rows, G>(group_mask<G>(lane), row.part(t, m, cls, triple));
   if (t == 0)
@@ -1084,19 +1134,30 @@ int launch_lockstep(K kernel, const SeedArgs* args, size_t shared,
   return launched(cudaLaunchKernelEx(&cfg, kernel, *args));
 }
 
-// The kernel instances for a row layout.
+// The kernel instances for a row layout and a table source (sharded: t3
+// by blocks). seed_lockstep has sharded instances for narrow rows only: the
+// lock step is pallas mode's, which needs a direct, so narrow, index.
 typedef void (*SeedKernel)(const SeedArgs);
 
-SeedKernel scan_kernel(i64 wide) {
-  return wide ? seed_scan_kernel<WideRows> : seed_scan_kernel<NarrowRows>;
+SeedKernel scan_kernel(i64 wide, bool sharded) {
+  if (sharded)
+    return wide ? seed_scan_kernel<WideRows, ShardedTable>
+                : seed_scan_kernel<NarrowRows, ShardedTable>;
+  return wide ? seed_scan_kernel<WideRows, WholeTable>
+              : seed_scan_kernel<NarrowRows, WholeTable>;
 }
 
-SeedKernel lockstep_kernel(bool staged, i64 wide) {
+SeedKernel lockstep_kernel(bool staged, i64 wide, bool sharded) {
+  if (sharded) {
+    if (wide) return nullptr;
+    return staged ? seed_lockstep_kernel<true, NarrowRows, ShardedTable>
+                  : seed_lockstep_kernel<false, NarrowRows, ShardedTable>;
+  }
   if (staged)
-    return wide ? seed_lockstep_kernel<true, WideRows>
-                : seed_lockstep_kernel<true, NarrowRows>;
-  return wide ? seed_lockstep_kernel<false, WideRows>
-              : seed_lockstep_kernel<false, NarrowRows>;
+    return wide ? seed_lockstep_kernel<true, WideRows, WholeTable>
+                : seed_lockstep_kernel<true, NarrowRows, WholeTable>;
+  return wide ? seed_lockstep_kernel<false, WideRows, WholeTable>
+              : seed_lockstep_kernel<false, NarrowRows, WholeTable>;
 }
 
 // A launch of n queries, Rows::kGroup threads a query.
@@ -1121,7 +1182,7 @@ extern "C" int gsalign_seed_scan(const SeedArgs* args, void* stream) {
   if (args->B <= 0) return 0;
   const size_t shared = scan_shared(scan_head_words(args->wide), kScanWarps,
                                     args->win_words);
-  const SeedKernel kernel = scan_kernel(args->wide);
+  const SeedKernel kernel = scan_kernel(args->wide, args->t3_shards.rows > 0);
   cudaError_t e = allow_shared(kernel, shared);
   if (e != cudaSuccess) return static_cast<int>(e);
   const cudaLaunchConfig_t cfg =
@@ -1131,21 +1192,22 @@ extern "C" int gsalign_seed_scan(const SeedArgs* args, void* stream) {
 }
 
 // The most blocks of seed_lockstep that the current device holds at once,
-// for the row layout `wide`: with each warp's query window of win_words
-// words a plane staged in shared memory, or (win_words < 0) with no window.
-// 0 blocks: the window does not fit a block's shared memory.
+// for the row layout `wide` and the table source `sharded`: with each
+// warp's query window of win_words words a plane staged in shared memory,
+// or (win_words < 0) with no window. 0 blocks: the window does not fit a
+// block's shared memory.
 extern "C" int gsalign_seed_lockstep_blocks(i64 win_words, i64 wide,
-                                            int* blocks) {
+                                            i64 sharded, int* blocks) {
   *blocks = 0;
+  const SeedKernel kernel = lockstep_kernel(win_words >= 0, wide, sharded);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (win_words < 0)
     return static_cast<int>(resident_blocks(
-        lockstep_kernel(false, wide),
-        scan_shared(lock_head_words(wide), 0, 0), blocks));
+        kernel, scan_shared(lock_head_words(wide), 0, 0), blocks));
   const size_t shared =
       scan_shared(lock_head_words(wide), kLockWarps, win_words);
   if (shared > 227 * 1024) return 0;
-  return static_cast<int>(
-      resident_blocks(lockstep_kernel(true, wide), shared, blocks));
+  return static_cast<int>(resident_blocks(kernel, shared, blocks));
 }
 
 // args->blocks blocks, launched cooperatively: a grid that the device cannot
@@ -1156,20 +1218,29 @@ extern "C" int gsalign_seed_lockstep(const SeedArgs* args, void* stream) {
       args->blocks * kLockWarps * args->lanes_per_warp < args->B)
     return static_cast<int>(cudaErrorInvalidValue);
   const int head = lock_head_words(args->wide);
-  if (args->lanes_per_warp == 1 && args->win_words > 0)
-    return launch_lockstep(
-        lockstep_kernel(true, args->wide), args,
-        scan_shared(head, kLockWarps, args->win_words), stream);
-  return launch_lockstep(lockstep_kernel(false, args->wide), args,
-                         scan_shared(head, 0, 0), stream);
+  const bool staged = args->lanes_per_warp == 1 && args->win_words > 0;
+  const SeedKernel kernel =
+      lockstep_kernel(staged, args->wide, args->t3_shards.rows > 0);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_lockstep(
+      kernel, args,
+      staged ? scan_shared(head, kLockWarps, args->win_words)
+             : scan_shared(head, 0, 0),
+      stream);
 }
 
 extern "C" int gsalign_resolve_sa(const ResolveArgs* args, void* stream) {
   if (args->n <= 0) return 0;
-  return args->wide ? launch_groups<WideRows>(resolve_sa_kernel<WideRows>,
-                                              args, stream)
-                    : launch_groups<NarrowRows>(
-                          resolve_sa_kernel<NarrowRows>, args, stream);
+  const bool sharded = args->t3_shards.rows > 0;
+  if (args->wide)
+    return launch_groups<WideRows>(
+        sharded ? resolve_sa_kernel<WideRows, ShardedTable>
+                : resolve_sa_kernel<WideRows, WholeTable>,
+        args, stream);
+  return launch_groups<NarrowRows>(
+      sharded ? resolve_sa_kernel<NarrowRows, ShardedTable>
+              : resolve_sa_kernel<NarrowRows, WholeTable>,
+      args, stream);
 }
 
 extern "C" int gsalign_occ_rows(const OccArgs* args, void* stream) {
@@ -1178,4 +1249,15 @@ extern "C" int gsalign_occ_rows(const OccArgs* args, void* stream) {
                                               args, stream)
                     : launch_groups<NarrowRows>(occ_rows_kernel<NarrowRows>,
                                                 args, stream);
+}
+
+// Let the current device's kernels read device `peer`'s memory (the blocks
+// of a row-sharded table on another card). Enabling it twice is no error.
+extern "C" int gsalign_enable_peer(int peer) {
+  const cudaError_t e = cudaDeviceEnablePeerAccess(peer, 0);
+  if (e == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();
+    return 0;
+  }
+  return static_cast<int>(e);
 }

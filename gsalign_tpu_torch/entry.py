@@ -1,4 +1,4 @@
-"""Entry point on the flagship compute path: the batched DP aligner.
+"""Entry points on the flagship compute path.
 
 entry() -> (fn, example_args), the counterpart of the JAX package's
 __graft_entry__.entry() on the same inputs: 32 problems of 256 bases from
@@ -8,7 +8,12 @@ the CUDA card, their plain torch version (ops/dp.dp_align_batch) on CPU
 tensors, where the CPU is asked for. It returns reverse-order op codes
 uint8 [B, 2L] with OP_PAD holes.
 
-    python -m gsalign_tpu_torch.entry          # on the card
+dryrun_multichip(n) runs the whole pipeline over an n-entry mesh
+(parallel/mesh.py), the counterpart of __graft_entry__.dryrun_multichip:
+one small genome comparison with the seed lanes and the DP problems split
+over the entries.
+
+    python -m gsalign_tpu_torch.entry          # both, on the card
 """
 
 from __future__ import annotations
@@ -50,8 +55,50 @@ def entry(device=None):
     return fn, example_args
 
 
+def dryrun_multichip(n_devices: int, device=None) -> None:
+    """compare_genomes over an n_devices-entry mesh on a 30 kb random genome
+    (numpy's default_rng(7)) and its copy with 1 % of its bases changed,
+    with seed_exploration_chunk 1000 so that every entry owns seed lanes;
+    asserts at least one alignment and an ANI above 95. device None: every
+    card, or where fewer than n_devices are visible the first card
+    n_devices times, a stream an entry; "cpu": n_devices CPU entries."""
+    from gsalign_tpu_torch.config import AlignConfig
+    from gsalign_tpu_torch.genome.packing import Genome, codes_to_chars
+    from gsalign_tpu_torch.index.fmindex import build_fmindex
+    from gsalign_tpu_torch.parallel import mesh as mesh_lib
+    from gsalign_tpu_torch.pipeline.align import compare_genomes
+
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None \
+            and torch.cuda.device_count() >= n_devices:
+        devices = [torch.device("cuda", i) for i in range(n_devices)]
+    else:
+        devices = [dev] * n_devices
+    mesh = mesh_lib.make_mesh(devices)
+
+    rng = np.random.default_rng(7)
+    codes = rng.integers(0, 4, 30_000).astype(np.uint8)
+    genome = Genome(names=["c"], lengths=np.asarray([len(codes)]),
+                    offsets=np.asarray([0]), holes=[], codes_fwd=codes)
+    fm = build_fmindex(genome, prefer_device=False)
+    qry = codes.copy()
+    subs = rng.random(len(qry)) < 0.01
+    qry[subs] = (qry[subs] + rng.integers(1, 4, subs.sum())) % 4
+    # small chunks, so that every entry owns seed lanes
+    cfg = AlignConfig(seed_exploration_chunk=1000)
+    stats, collector, _ = compare_genomes(
+        fm, [("q", codes_to_chars(qry))], cfg, output_prefix=None,
+        verbose=False, mesh=mesh)
+    assert stats.local_alignment_num >= 1
+    assert stats.ani > 95.0
+    print(f"dryrun_multichip({n_devices}): pipeline ok on {mesh} - "
+          f"alignments={stats.local_alignment_num} ani={stats.ani:.2f} "
+          f"snv={collector.n_snv}")
+
+
 if __name__ == "__main__":
     fn, args = entry()
     out = fn(*args)
     torch.cuda.synchronize()
     print("entry ok:", tuple(out.shape))
+    dryrun_multichip(max(4, torch.cuda.device_count()))

@@ -178,19 +178,28 @@ class FragmentAligner:
     by default the hand-written kernels (ops/dp_cuda.dp_align, which runs
     the plain version on CPU tensors). device=None is the CUDA card and
     raises without one; "cpu" asks for the CPU.
+
+    With a mesh (parallel/mesh.Mesh) each launch's problems are padded to a
+    multiple of the mesh size with WILDCARD problems of length 1 and cut
+    into contiguous stripes, one dp_fn launch a stripe on its entry's
+    device and stream; the pad problems' ops are dropped. The mesh's
+    devices replace `device`.
     """
 
     def __init__(self, bucket_sizes=(64, 128, 256, 512, 1024, 2048, 5120),
-                 batch_cells: int = 1 << 26, dp_fn=None, device=None):
+                 batch_cells: int = 1 << 26, dp_fn=None, device=None,
+                 mesh=None):
         if dp_fn is None:
             from gsalign_tpu_torch.ops.dp_cuda import dp_align as dp_fn
         self.bucket_sizes = bucket_sizes
         self.batch_cells = batch_cells
         self.dp_fn = dp_fn
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.devices[0] if mesh is not None \
+            else resolve_device(device)
         self.frags: list = []          # (rf, qf) by global index
         self.queue: dict = {}          # Lb -> [global index]
-        self.pending: list = []        # (part_idxs, device_ops)
+        self.pending: list = []        # (part_idxs, [device ops a stripe])
 
     def submit(self, ref_frags, qry_frags) -> int:
         """Queue fragments; returns the base global index of this batch.
@@ -219,8 +228,20 @@ class FragmentAligner:
             t[bi, :len(qf)] = qf
             ql[bi] = len(rf)
             tl[bi] = len(qf)
-        args = [torch.from_numpy(a).to(self.device) for a in (q, t, ql, tl)]
-        self.pending.append((list(part), self.dp_fn(*args, Lb)))
+        if self.mesh is None:
+            args = [torch.from_numpy(a).to(self.device)
+                    for a in (q, t, ql, tl)]
+            self.pending.append((list(part), [self.dp_fn(*args, Lb)]))
+            return
+        from gsalign_tpu_torch.parallel import mesh as mesh_lib
+        mesh = self.mesh
+        stripes = zip(*(mesh_lib.shard_lanes(a, mesh, pad) for a, pad in
+                        ((q, WILDCARD), (t, WILDCARD), (ql, 1), (tl, 1))))
+        ops = []
+        for i, args in enumerate(stripes):
+            with mesh.on(i):
+                ops.append(self.dp_fn(*args, Lb))
+        self.pending.append((list(part), ops))
 
     def finish(self) -> list:
         """Launch leftovers, copy every batch's ops to the host in ONE
@@ -241,13 +262,25 @@ class FragmentAligner:
         results: list = [None] * len(self.frags)
         if not self.pending:
             return results
-        flat_h = torch.cat([d.reshape(-1) for _, d in self.pending]).cpu() \
-            .numpy()
-        off = 0
-        for part, dev_ops in self.pending:
-            bp, w = dev_ops.shape
-            ops = flat_h[off:off + bp * w].reshape(bp, w)
-            off += bp * w
+        # one copy a device: every stripe's ops on that device, in order
+        by_dev: dict = {}
+        for _, stripes in self.pending:
+            for i, d in enumerate(stripes):
+                by_dev.setdefault(d.device, []).append((i, d))
+        flat = {}
+        for dev, parts in by_dev.items():
+            if self.mesh is not None and dev.type == "cuda":
+                cur = torch.cuda.current_stream(dev)
+                for i, d in parts:
+                    cur.wait_stream(self.mesh.streams[i])
+                    d.record_stream(cur)
+            host = torch.cat([d.reshape(-1) for _, d in parts]).cpu().numpy()
+            flat[dev] = iter(np.split(host, np.cumsum(
+                [d.numel() for _, d in parts])[:-1]))
+        for part, stripes in self.pending:
+            w = stripes[0].shape[1]
+            ops = np.concatenate([next(flat[d.device]) for d in stripes]
+                                 ).reshape(-1, w)[:len(part)]
             # strip pads + reverse for the whole batch at once: reversing
             # first keeps the flat extraction in forward order
             rev = ops[:, ::-1]
@@ -266,12 +299,12 @@ class FragmentAligner:
 def align_fragments(ref_frags, qry_frags, bucket_sizes=(64, 128, 256, 512,
                                                         1024, 2048, 5120),
                     batch_cells: int = 1 << 26, dp_fn=None,
-                    device=None) -> list:
+                    device=None, mesh=None) -> list:
     """Align a list of (ref_codes, qry_codes) numpy fragment pairs; returns
     per-pair op arrays in FORWARD order (one-shot FragmentAligner, whose
-    device rule applies: None is the card, "cpu" the CPU)."""
+    device and mesh rules apply: None is the card, "cpu" the CPU)."""
     fa = FragmentAligner(bucket_sizes=bucket_sizes, batch_cells=batch_cells,
-                         dp_fn=dp_fn, device=device)
+                         dp_fn=dp_fn, device=device, mesh=mesh)
     fa.submit(ref_frags, qry_frags)
     return fa.finish()
 

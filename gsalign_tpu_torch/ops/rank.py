@@ -24,6 +24,13 @@ Two row layouts, as in the JAX package:
     SA samples are int64. A wide index is never direct.
 lf_t3 and resolve_sa here are the plain torch versions of the resolve_sa
 kernel (ops/seed_cuda.py).
+
+Row-sharded tables (parallel/mesh.shard_index_rows): t3 and sa_samples cut
+into equal row blocks, one a mesh entry (RowShards), the other tables whole
+on the first entry's device. Every read of those two tables goes through
+t3_row_fetch and plane_fetch: a masked local gather per block, summed over
+the blocks, as the JAX package's _t3_row_fetch and _plane_fetch gather and
+psum over the mesh.
 """
 
 from __future__ import annotations
@@ -69,6 +76,15 @@ def comb_rows(order: int) -> int:
 
 
 @dataclasses.dataclass(frozen=True)
+class RowShards:
+    """A table's rows cut into equal blocks, one a mesh entry, each on its
+    entry's device; the last is zero-padded. Row r is row r % rows of block
+    r // rows."""
+    blocks: tuple             # torch.Tensor [rows, ...] each
+    rows: int
+
+
+@dataclasses.dataclass(frozen=True)
 class DeviceFMIndex:
     """Device rank tables (see the JAX package's DeviceFMIndex for the
     layout of each). Every tensor lives on `device`."""
@@ -94,6 +110,10 @@ class DeviceFMIndex:
     sa_intv: int
     direct_ok: bool           # full SA: direct extension, host hit expansion
     wide: bool                # wide row layout (module docstring)
+    # row-sharded tables: {field: RowShards}; the field itself then holds
+    # no rows, so that no read can miss the blocks
+    row_shards: Optional[dict] = dataclasses.field(default=None, repr=False,
+                                                   compare=False)
 
     @property
     def device(self) -> torch.device:
@@ -378,6 +398,39 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
     return ((x * 0x01010101) >> 24) & 0xFF
 
 
+def _fetch(dfm: DeviceFMIndex, field: str, idx: torch.Tensor,
+           col: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """table[idx] (table[idx, col] with col) of one of the index's tables,
+    on idx's device. A row-sharded table: each block gathers the rows it
+    owns, zero for the others, and the blocks' results are summed."""
+    shards = dfm.row_shards.get(field) if dfm.row_shards else None
+    if shards is None:
+        table = getattr(dfm, field)
+        return table[idx] if col is None else table[idx, col]
+    out = None
+    for s, blk in enumerate(shards.blocks):
+        loc = idx - s * shards.rows
+        ok = (loc >= 0) & (loc < shards.rows)
+        at = loc.clamp(0, shards.rows - 1).to(blk.device)
+        v = (blk[at] if col is None else blk[at, col.to(blk.device)]
+             ).to(idx.device)
+        v = torch.where(ok.view(ok.shape + (1,) * (v.dim() - ok.dim())), v,
+                        0)
+        out = v if out is None else out + v
+    return out
+
+
+def t3_row_fetch(dfm: DeviceFMIndex, idx: torch.Tensor) -> torch.Tensor:
+    """dfm.t3[idx], row-shard-aware (int32 [n, 64] | [n, 100])."""
+    return _fetch(dfm, "t3", idx)
+
+
+def plane_fetch(dfm: DeviceFMIndex, field: str,
+                idx: torch.Tensor) -> torch.Tensor:
+    """A 1-D table's entries at idx, row-shard-aware."""
+    return _fetch(dfm, field, idx)
+
+
 def occ4(dfm: DeviceFMIndex, k: torch.Tensor) -> torch.Tensor:
     """Counts of each base in B'[0..k_adj] (bwt_occ4,
     src/bwt_search.cpp:69-86), batched. k int64 [B] (-1 -> 0). [B, 4]."""
@@ -413,7 +466,7 @@ def occ_t3(dfm: DeviceFMIndex, k: torch.Tensor, is_triple: torch.Tensor,
     single mode: # of rows in [0, k) whose true preceding char is cls
       (cls in [0, 4)) — sym & 3 plus exception corrections."""
     dev = k.device
-    row = widen(dfm.t3[k >> 7])                        # [B, 64] | [B, 100]
+    row = widen(t3_row_fetch(dfm, k >> 7))             # [B, 64] | [B, 100]
     B = row.shape[0]
     if dfm.wide:
         # u32 low words plus their 2-bit carries at bit 32, in int64
@@ -481,7 +534,7 @@ def lf_t3(dfm: DeviceFMIndex, k: torch.Tensor) -> torch.Tensor:
     strict_rank1(c, k) for c the char preceding row k's suffix; the SA == 0
     row maps to the sentinel row 0. k int64 [B]."""
     inb = k & 127
-    w = widen(dfm.t3[k >> 7, sym_offset(dfm) + (inb >> 2)])
+    w = widen(_fetch(dfm, "t3", k >> 7, sym_offset(dfm) + (inb >> 2)))
     c = (w >> ((3 - (inb & 3)) * 8)) & 3
     # rows with SA < 3 store sym 0: fix the char. The SA == 0 row (the
     # primary) has none (its t3_exc_chr is -1, stored as 255 by the index
@@ -513,5 +566,7 @@ def resolve_sa(dfm: DeviceFMIndex, k: torch.Tensor) -> torch.Tensor:
             break
         k = torch.where(active, lf_t3(dfm, k), k)
         steps = steps + active.to(steps.dtype)
-    base = sa_table(dfm)[k >> (dfm.sa_intv.bit_length() - 1)].to(k.dtype)
+    at = k >> (dfm.sa_intv.bit_length() - 1)
+    base = (dfm.sa_rows[at] if dfm.direct_ok
+            else plane_fetch(dfm, "sa_samples", at)).to(k.dtype)
     return (steps + base) % (dfm.seq_len + 1)

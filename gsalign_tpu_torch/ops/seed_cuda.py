@@ -23,12 +23,19 @@ wrappers.
                 decode. Plain version: rank.occ_t3.
 
 Each kernel runs narrow and wide indexes (ops/rank.py), by an instance of
-its row layout.
+its row layout, and each but occ_rows a row-sharded index
+(parallel/mesh.shard_index_rows) by an instance that reads t3 and
+sa_samples through their blocks' addresses (csrc/seed.cu ShardedTable;
+seed_lockstep's for narrow rows only).
 
 On a CPU tensor a wrapper runs the plain version. On a CUDA tensor it
 launches its kernel or raises: a build or launch failure is an error, never
-a silent fallback. Each wrapper counts its launches in `.launches`. The
-kernels read the DeviceFMIndex tensors as they are (see ops/rank.py).
+a silent fallback. Each wrapper counts its launches in `.launches`, those
+of its sharded instance in `.sharded_launches`. The kernels read the
+DeviceFMIndex tensors as they are (see ops/rank.py). seed_scan and
+seed_lockstep come in two halves too, the launch and the read-back
+(scan_launch / scan_result, lockstep_launch / lockstep_result), so that a
+mesh launches every stripe before it reads any back.
 """
 
 from __future__ import annotations
@@ -44,6 +51,12 @@ from gsalign_tpu_torch.ops import rank as rank_ops
 from gsalign_tpu_torch.ops import seeding
 
 _vp, _ll = ctypes.c_void_p, ctypes.c_longlong
+MAX_SHARDS = 8          # csrc/seed.cu kMaxShards: row blocks a table
+
+
+class _Shards(ctypes.Structure):
+    """csrc/seed.cu Shards: a table's row blocks (rows 0: read whole)."""
+    _fields_ = [("block", _vp * MAX_SHARDS), ("rows", _ll)]
 
 
 class _SeedArgs(ctypes.Structure):
@@ -55,7 +68,8 @@ class _SeedArgs(ctypes.Structure):
             "B", "max_out", "min_seed_length", "max_seed_freq", "sensitive",
             "order", "use_init", "use8", "seq_len", "n_look", "mode",
             "win_words", "step_cap", "gather_k", "max_iters", "blocks",
-            "lanes_per_warp", "wide", "comb_init_off", "comb_half")]
+            "lanes_per_warp", "wide", "comb_init_off", "comb_half")] + [
+                ("t3_shards", _Shards)]
 
 
 class _ResolveArgs(ctypes.Structure):
@@ -63,7 +77,8 @@ class _ResolveArgs(ctypes.Structure):
     _fields_ = [(n, _vp) for n in (
         "t3", "t3_major", "t3_exc_pos", "t3_exc_chr", "l2", "sa", "sa64",
         "k", "out")] + [(n, _ll) for n in (
-            "n", "primary", "seq_len", "sa_intv", "wide")]
+            "n", "primary", "seq_len", "sa_intv", "wide")] + [
+                ("t3_shards", _Shards), ("sa_shards", _Shards)]
 
 
 class _OccArgs(ctypes.Structure):
@@ -77,9 +92,11 @@ class _OccArgs(ctypes.Structure):
 SIGNATURES = {
     "gsalign_seed_scan": [ctypes.POINTER(_SeedArgs), _vp],
     "gsalign_seed_lockstep": [ctypes.POINTER(_SeedArgs), _vp],
-    "gsalign_seed_lockstep_blocks": [_ll, _ll, ctypes.POINTER(ctypes.c_int)],
+    "gsalign_seed_lockstep_blocks": [_ll, _ll, _ll,
+                                     ctypes.POINTER(ctypes.c_int)],
     "gsalign_resolve_sa": [ctypes.POINTER(_ResolveArgs), _vp],
-    "gsalign_occ_rows": [ctypes.POINTER(_OccArgs), _vp]}
+    "gsalign_occ_rows": [ctypes.POINTER(_OccArgs), _vp],
+    "gsalign_enable_peer": [ctypes.c_int]}
 
 
 def build() -> ctypes.CDLL:
@@ -98,6 +115,41 @@ def _ptr(t: Optional[torch.Tensor], dtype, dev, name: str):
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     return t.data_ptr()
+
+
+def sharded(dfm) -> bool:
+    """Whether the kernels read this index's t3 and sa_samples by blocks."""
+    return dfm.row_shards is not None
+
+
+_peers: set = set()      # (device, peer) pairs with peer access enabled
+
+
+def _shards(dfm, field: str, dtype, dev) -> _Shards:
+    """The row blocks of one of a sharded index's tables (a table that
+    is not cut: one block of all its rows), after checking each block. A
+    block on another card needs peer access from `dev`, enabled here once;
+    where it is not possible, raise."""
+    sh = dfm.row_shards.get(field)
+    blocks = sh.blocks if sh is not None else (getattr(dfm, field),)
+    if len(blocks) > MAX_SHARDS:
+        raise ValueError(f"{field} is cut into {len(blocks)} blocks; the "
+                         f"kernels take at most {MAX_SHARDS}")
+    out = _Shards(rows=sh.rows if sh is not None else blocks[0].shape[0])
+    for i, blk in enumerate(blocks):
+        if blk.device != dev:
+            if blk.device.type != "cuda" or dev.type != "cuda" or \
+                    not torch.cuda.can_device_access_peer(dev, blk.device):
+                raise ValueError(f"{field} block {i} is on {blk.device}, "
+                                 f"which {dev} cannot read")
+            if (dev, blk.device) not in _peers:
+                with torch.cuda.device(dev):
+                    cuda_build.raise_on(
+                        build().gsalign_enable_peer(blk.device.index),
+                        "peer access")
+                _peers.add((dev, blk.device))
+        out.block[i] = _ptr(blk, dtype, blk.device, f"{field} block {i}")
+    return out
 
 
 def _seed_args(dfm, q_rows, lanes, prm, win_words=0, step_cap=0,
@@ -124,7 +176,9 @@ def _seed_args(dfm, q_rows, lanes, prm, win_words=0, step_cap=0,
     direct = prm.sa_mode != "none"
     return _SeedArgs(
         q_rows=_ptr(q_rows, i32, dev, "q_rows"),
-        t3=_ptr(dfm.t3, i32, dev, "t3"),
+        t3=None if sharded(dfm) else _ptr(dfm.t3, i32, dev, "t3"),
+        t3_shards=_shards(dfm, "t3", i32, dev) if sharded(dfm)
+        else _Shards(),
         t3_major=_ptr(dfm.t3_major, i32, dev, "t3_major"),
         t3_exc_pos=_ptr(dfm.t3_exc_pos, i64, dev, "t3_exc_pos"),
         t3_exc_chr=_ptr(dfm.t3_exc_chr, i64, dev, "t3_exc_chr"),
@@ -191,9 +245,17 @@ def seed_scan(dfm, q_rows: torch.Tensor, lanes, prm) -> np.ndarray:
     its end, in place, in one launch. Returns the final lane state on the
     host (int64 [N_FIELDS, B]): reading it back is the scan's one
     synchronisation. Raises if a lane exceeded the step limit."""
+    return scan_result(lanes, scan_launch(dfm, q_rows, lanes, prm))
+
+
+def scan_launch(dfm, q_rows: torch.Tensor, lanes, prm) -> int:
+    """seed_scan's first half: the launch on the lanes' device and current
+    stream, nothing read back (on the CPU: the whole plain scan). Returns
+    the step limit, which scan_result checks."""
     dev = lanes.st.device
     if dev.type == "cpu":
-        return seeding.seed_scan_plain(dfm, q_rows, lanes, prm)
+        seeding.seed_scan_plain(dfm, q_rows, lanes, prm)
+        return 0
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     if prm.sa_mode == "pallas":
@@ -210,16 +272,25 @@ def seed_scan(dfm, q_rows: torch.Tensor, lanes, prm) -> np.ndarray:
     if lanes.st.shape[1]:
         cuda_build.raise_on(build().gsalign_seed_scan(
             ctypes.byref(args), cuda_build.stream(dev)), "seed_scan")
-        cuda_build.count(seed_scan)
+        cuda_build.count(seed_scan, "sharded_launches" if sharded(dfm)
+                         else "launches")
+    return args.step_cap
+
+
+def scan_result(lanes, step_cap: int) -> np.ndarray:
+    """seed_scan's second half: the final lane state read back (on a card
+    the scan's one synchronisation, on the current stream); raises if a
+    lane exceeded the step limit."""
     st = lanes.read_back()[0]
     over = np.flatnonzero(st[seeding.F_STEPS] < 0)
     if over.size:
         raise RuntimeError(f"seed_scan: lanes {over[:8].tolist()} exceeded "
-                           f"the step limit {args.step_cap}")
+                           f"the step limit {step_cap}")
     return st
 
 
 seed_scan.launches = 0
+seed_scan.sharded_launches = 0
 
 
 def lockstep_plan(B: int, staged_blocks: int, bare_blocks: int,
@@ -262,13 +333,14 @@ def slots_blockwise(need: np.ndarray, lanes_per_block: int, K: int
     return np.where(need & (pos < K), pos, -1)
 
 
-def resident_blocks(lib, win_words: int, wide: bool = False) -> int:
-    """The most seed_lockstep blocks of a row layout that the current
-    device holds at once, with query windows of win_words words staged
-    (none for win_words < 0)."""
+def resident_blocks(lib, win_words: int, wide: bool = False,
+                    row_sharded: bool = False) -> int:
+    """The most seed_lockstep blocks of a row layout and table source that
+    the current device holds at once, with query windows of win_words words
+    staged (none for win_words < 0)."""
     n = ctypes.c_int(0)
     cuda_build.raise_on(lib.gsalign_seed_lockstep_blocks(
-        win_words, int(wide), ctypes.byref(n)),
+        win_words, int(wide), int(row_sharded), ctypes.byref(n)),
         "seed_lockstep occupancy query")
     return n.value
 
@@ -280,9 +352,14 @@ def launch_lockstep(lib, stream, dfm, q_rows, lanes, prm, max_iters: int,
     csrc/seed.cu calls it, with a library built for the host.)"""
     B = lanes.st.shape[1]
     win_words = _win_words(lanes.max_len)
+    if sharded(dfm) and dfm.wide:
+        raise ValueError("seed_lockstep has no row-sharded instance for wide "
+                         "rows (the lock step is pallas mode's, on a narrow "
+                         "direct index)")
+    kw = {"row_sharded": True} if sharded(dfm) else {}
     blocks, per, staged = lockstep_plan(
-        B, resident_blocks(lib, win_words, dfm.wide),
-        resident_blocks(lib, -1, dfm.wide), max_blocks)
+        B, resident_blocks(lib, win_words, dfm.wide, **kw),
+        resident_blocks(lib, -1, dfm.wide, **kw), max_blocks)
     K = min(seeding._SA_GATHER_K, B)
     # every iteration steps at least one lane, or the first K needy ones
     cap = _step_cap(lanes.max_len) * (B if prm.sa_mode == "pallas" and B > K
@@ -311,18 +388,35 @@ def seed_lockstep(dfm, q_rows: torch.Tensor, lanes, prm, max_iters: int = 0,
     if the scan ran into the iteration limit. Beside its launches it counts
     the SA words its launches gathered and the lane-iterations they stalled
     (.gathered, .stalled)."""
+    lockstep_launch(dfm, q_rows, lanes, prm, max_iters, max_blocks)
+    return lockstep_result(lanes, max_iters)
+
+
+def lockstep_launch(dfm, q_rows: torch.Tensor, lanes, prm, max_iters: int = 0,
+                    max_blocks: Optional[int] = None) -> None:
+    """seed_lockstep's first half: the launch on the lanes' device and
+    current stream, nothing read back (on the CPU: the whole host loop)."""
     dev = lanes.st.device
     if dev.type == "cpu":
         seeding.scan_lockstep(dfm, q_rows, lanes, prm, plain=True,
                               max_iters=max_iters)
-        return lanes.read_back()
+        return
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     lanes.counters.zero_()
     if lanes.max_len > 0:
         launch_lockstep(build(), cuda_build.stream(dev), dfm, q_rows, lanes,
                         prm, max_iters, max_blocks)
-        cuda_build.count(seed_lockstep)
+        cuda_build.count(seed_lockstep, "sharded_launches" if sharded(dfm)
+                         else "launches")
+
+
+def lockstep_result(lanes, max_iters: int = 0):
+    """seed_lockstep's second half: (lane state, counters) read back, the
+    words gathered and the stalls counted; raises if the scan ran into the
+    iteration limit (max_iters 0)."""
+    if lanes.st.device.type == "cpu":
+        return lanes.read_back()
     st, counters = lanes.read_back()
     cuda_build.count(seed_lockstep, "gathered",
                      int(counters[seeding.C_GATHERED]))
@@ -336,6 +430,7 @@ def seed_lockstep(dfm, q_rows: torch.Tensor, lanes, prm, max_iters: int = 0,
 
 
 seed_lockstep.launches = 0
+seed_lockstep.sharded_launches = 0
 seed_lockstep.gathered = 0
 seed_lockstep.stalled = 0
 
@@ -358,6 +453,20 @@ def _resolve_args(dfm, k: torch.Tensor, out: torch.Tensor) -> _ResolveArgs:
     """The kernel's argument struct, after checking every tensor."""
     dev, i64, i32 = k.device, torch.int64, torch.int32
     sa = rank_ops.sa_table(dfm)
+    sa_dtype = i64 if dfm.wide else i32
+    if sharded(dfm):
+        if dfm.direct_ok:
+            raise ValueError("a direct index resolves its ranks on the host")
+        return _ResolveArgs(
+            t3_major=_ptr(dfm.t3_major, i32, dev, "t3_major"),
+            t3_exc_pos=_ptr(dfm.t3_exc_pos, i64, dev, "t3_exc_pos"),
+            t3_exc_chr=_ptr(dfm.t3_exc_chr, i64, dev, "t3_exc_chr"),
+            l2=_ptr(dfm.l2, i64, dev, "l2"),
+            k=_ptr(k, i64, dev, "k"), out=_ptr(out, i64, dev, "out"),
+            n=k.shape[0], primary=dfm.primary, seq_len=dfm.seq_len,
+            sa_intv=dfm.sa_intv, wide=int(dfm.wide),
+            t3_shards=_shards(dfm, "t3", i32, dev),
+            sa_shards=_shards(dfm, "sa_samples", sa_dtype, dev))
     return _ResolveArgs(
         t3=_ptr(dfm.t3, i32, dev, "t3"),
         t3_major=_ptr(dfm.t3_major, i32, dev, "t3_major"),
@@ -387,11 +496,13 @@ def resolve_sa(dfm, k: torch.Tensor) -> torch.Tensor:
         args = _resolve_args(dfm, k, out)
         cuda_build.raise_on(build().gsalign_resolve_sa(
             ctypes.byref(args), cuda_build.stream(dev)), "resolve_sa")
-        cuda_build.count(resolve_sa)
+        cuda_build.count(resolve_sa, "sharded_launches" if sharded(dfm)
+                         else "launches")
     return out
 
 
 resolve_sa.launches = 0
+resolve_sa.sharded_launches = 0
 
 
 def occ_args(dfm, k: torch.Tensor, cls: torch.Tensor, triple: torch.Tensor,

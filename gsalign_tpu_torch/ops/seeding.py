@@ -55,12 +55,22 @@ The plain version of both is the host loop scan_lockstep: one
 seed_step_plain over all lanes an iteration, in pallas mode after _sa_slots
 and masked_gather_plain. It runs on the CPU and, beside the kernels, in the
 comparisons on a card; nothing on a card's main path calls it.
+
 Both give every lane the same steps, so the same records, final state and
 per-lane step counts (F_STEPS), whose maximum is the lock-step loop's
 iteration count. The JAX package's speculative segments, halving-width
 lane cascade, power-of-two lane padding and its "xlak" and "pallas_interp"
 SA modes are not carried: one lane per chunk. A full emit buffer poisons
 its lane, which is re-scanned from the poison position in a further round.
+
+Over a mesh (parallel/mesh.py) a round's lanes are cut into contiguous
+stripes, one an entry, each scanned by its own launch on its entry's device
+and stream (pallas mode: with its own K slots, as each JAX device has), all
+launched before any is read back, and joined in mesh order, which is lane
+order. The lock-step stripes of one card run in turn on one stream: a
+cooperative grid of the card's size must not wait for another's blocks. A
+row-sharded index (mesh.shard_index_rows) scans its lanes whole on the first
+entry, reading the tables by blocks.
 """
 
 from __future__ import annotations
@@ -503,6 +513,42 @@ def seed_scan_plain(dfm: DeviceFMIndex, q_rows: torch.Tensor,
     return lanes.read_back()[0]
 
 
+def _scan_launch(dfm, q_rows, starts, stops, prm, plain):
+    """Start one scan of lanes [starts, stops) on q_rows' device and current
+    stream; returns what _scan_result reads back."""
+    from gsalign_tpu_torch.ops import seed_cuda
+    lanes = ScanLanes.start(starts, stops, prm.max_out, q_rows.device)
+    if plain:
+        scan_lockstep(dfm, q_rows, lanes, prm, plain=True)
+        cap = None
+    elif prm.sa_mode == "pallas":
+        seed_cuda.lockstep_launch(dfm, q_rows, lanes, prm)
+        cap = None
+    else:
+        cap = seed_cuda.scan_launch(dfm, q_rows, lanes, prm)
+    return lanes, cap
+
+
+def _records(lanes: ScanLanes, prm: ScanParams) -> np.ndarray:
+    """The emitted records on the host, in lane-major order."""
+    keep = torch.arange(prm.max_out, device=lanes.st.device)[None, :] \
+        < lanes.st[F_OUT_N][:, None]
+    return lanes.out[keep].cpu().numpy()
+
+
+def _scan_result(pending, prm, plain):
+    """(st, recs) of a scan _scan_launch started."""
+    from gsalign_tpu_torch.ops import seed_cuda
+    lanes, cap = pending
+    if plain:
+        st = lanes.read_back()[0]
+    elif prm.sa_mode == "pallas":
+        st = seed_cuda.lockstep_result(lanes)[0]
+    else:
+        st = seed_cuda.scan_result(lanes, cap)
+    return st, _records(lanes, prm)
+
+
 def scan_lanes(dfm: DeviceFMIndex, q_rows: torch.Tensor, starts: np.ndarray,
                stops: np.ndarray, prm: ScanParams, plain: bool = False):
     """Run every lane [starts[i], stops[i]) to completion. Returns host
@@ -512,20 +558,49 @@ def scan_lanes(dfm: DeviceFMIndex, q_rows: torch.Tensor, starts: np.ndarray,
     torch versions on any device; otherwise one kernel launch runs the
     scan: seed_scan in the xla and none modes, seed_lockstep in pallas
     mode."""
+    return _scan_lanes(dfm, q_rows, starts, stops, prm, plain, None)[:2]
+
+
+def _scan_lanes(dfm, q_rows, starts, stops, prm, plain, mesh, fm=None):
+    """scan_lanes, or over a mesh (parallel/mesh.Mesh) one such scan a
+    stripe of the lanes (module docstring), a stripe that holds no lane not
+    launched; and the number of scans it ran. fm, the host index dfm was
+    laid out from, lays the tables out on the mesh's other devices
+    (parallel/mesh.shard_index)."""
     if prm.min_seed_length <= 3:
         raise ValueError("the triple-step shortcuts need min_seed_length > 3")
-    from gsalign_tpu_torch.ops import seed_cuda
-    lanes = ScanLanes.start(starts, stops, prm.max_out, q_rows.device)
-    if plain:
-        scan_lockstep(dfm, q_rows, lanes, prm, plain=True)
-        st = lanes.read_back()[0]
-    elif prm.sa_mode == "pallas":
-        st = seed_cuda.seed_lockstep(dfm, q_rows, lanes, prm)[0]
-    else:
-        st = seed_cuda.seed_scan(dfm, q_rows, lanes, prm)
-    keep = torch.arange(prm.max_out, device=q_rows.device)[None, :] \
-        < lanes.st[F_OUT_N][:, None]
-    return st, lanes.out[keep].cpu().numpy()            # lane-major order
+    if mesh is None:
+        return (*_scan_result(_scan_launch(dfm, q_rows, starts, stops, prm,
+                                           plain), prm, plain), 1)
+    from gsalign_tpu_torch.parallel import mesh as mesh_lib
+    B = len(starts)
+    n = mesh.size
+    per = mesh_lib.pad_to_multiple(max(B, 1), n) // n
+    parts = zip(mesh_lib.stripes(np.asarray(starts, np.int64), n, 0),
+                mesh_lib.stripes(np.asarray(stops, np.int64), n, 0))
+    tables = mesh_lib.shard_index(dfm, mesh, fm)
+    rows = {dev: q_rows.to(dev) for dev in tables}
+    shared = prm.sa_mode == "pallas" and not plain
+    pending = []
+    for i, (st_i, sp_i) in enumerate(parts):
+        real = min(per, max(0, B - i * per))
+        if real == 0:
+            continue
+        dev = mesh.devices[i]
+        with mesh.on(i, shared=shared):
+            pending.append((i, real, _scan_launch(tables[dev], rows[dev],
+                                                  st_i, sp_i, prm, plain)))
+    st_parts, rec_parts = [], []
+    for i, real, p in pending:
+        with mesh.on(i, shared=shared):
+            st, recs = _scan_result(p, prm, plain)
+        st_parts.append(st[:, :real])       # the padding lanes emit nothing
+        rec_parts.append(recs)
+    if not pending:
+        return (np.zeros((N_FIELDS, 0), np.int64),
+                np.zeros((0, 3), np.int64), 0)
+    return (np.concatenate(st_parts, axis=1), np.concatenate(rec_parts),
+            len(pending))
 
 
 def find_seeds_all(dfm: DeviceFMIndex,
@@ -537,15 +612,22 @@ def find_seeds_all(dfm: DeviceFMIndex,
                    max_out_cap: Optional[int] = None,
                    stats: Optional[dict] = None,
                    plain: bool = False,
-                   rounds: Optional[list] = None):
+                   rounds: Optional[list] = None,
+                   mesh=None,
+                   fm=None):
     """Seed ALL query chromosomes, exactly reproducing the reference's
     per-chunk sequential scan: one lane per chunk of every chromosome, all
-    in one device scan per round (scan_lanes).
+    in one device scan per round (scan_lanes), or one a stripe over `mesh`
+    (parallel/mesh.Mesh, whose first entry is dfm's device; a row-sharded
+    dfm scans its lanes whole). fm, the host FMIndex dfm was laid out
+    from, lays the tables out on the mesh's other devices; a mesh of dfm's
+    device alone needs none. The seeds are the same for any mesh.
 
     Returns [(q_pos, r_pos, length), ...] per chromosome, each sorted by
     (PosDiff, qPos), identical to the reference scan. With `stats`, records
     per round the most steps any lane took ("scan_iterations": the
-    lock-step loop's iteration count) and the lane count ("scan_lanes").
+    lock-step loop's iteration count), the scans run ("scan_launches": one
+    a stripe that holds lanes) and the lane count ("scan_lanes").
     With `rounds`, appends each round's scan_lanes arguments and results,
     (q_rows, starts, stops, prm, st, recs): the tests and the comparison of
     the kernels with their plain versions scan these lanes again.
@@ -583,13 +665,16 @@ def find_seeds_all(dfm: DeviceFMIndex,
     starts = np.asarray([s for s, _ in chunk_bounds], dtype=np.int64)
     stops = np.asarray([e for _, e in chunk_bounds], dtype=np.int64)
     hits_q, hits_l, hits_k0, hits_fr = [], [], [], []
-    iters = []
+    iters, launches = [], []
+    lane_mesh = None if dfm.row_shards is not None else mesh
     # each round advances an overflowing lane by >= max_out hits
     for _round in range(2 + -(-chunk // max(1, max_out))):
-        st, recs = scan_lanes(dfm, q_rows, starts, stops, prm, plain)
+        st, recs, n_scans = _scan_lanes(dfm, q_rows, starts, stops, prm,
+                                        plain, lane_mesh, fm)
         if rounds is not None:
             rounds.append((q_rows, starts, stops, prm, st, recs))
         iters.append(int(st[F_STEPS].max()) if len(starts) else 0)
+        launches.append(n_scans)
         lane = np.repeat(np.arange(len(starts), dtype=np.int64),
                          st[F_OUT_N])
         ls, k0, fr = recs[:, 0] >> 16, recs[:, 1], recs[:, 2]
@@ -609,6 +694,7 @@ def find_seeds_all(dfm: DeviceFMIndex,
         raise RuntimeError("seed overflow re-scan did not converge")
     if stats is not None:
         stats["scan_iterations"] = iters
+        stats["scan_launches"] = launches
         stats["scan_lanes"] = len(chunk_bounds)
     q_pos, r_pos, length = _expand_hits(
         dfm, np.concatenate(hits_q), np.concatenate(hits_l),

@@ -57,7 +57,7 @@ def _barrier(group) -> None:
 
 def run_distributed(fm, query_records: List, cfg, output_prefix: str,
                     verbose: bool = True, resume: bool = False,
-                    device=None):
+                    device=None, mesh=None):
     """Distributed compare_genomes: returns (stats, collector, results)
     on process 0 and (local stats, None, local results) elsewhere.
 
@@ -65,8 +65,11 @@ def run_distributed(fm, query_records: List, cfg, output_prefix: str,
     produces `{output_prefix}.part{ci}` shards merged by process 0 in
     chromosome order, reproducing the one-process emission order exactly
     (variant sequence numbers are offset per shard, see
-    VariantCollector.merge_from). device is compare_genomes' (None: the
-    CUDA card).
+    VariantCollector.merge_from). device and mesh are compare_genomes'
+    (device None: the CUDA card); with no mesh given, a run on a card builds
+    one over every card where more than one is visible
+    (parallel/mesh.local_mesh), as the JAX package meshes its local
+    devices.
 
     resume=True makes the run restartable (the per-fragment resumability
     the reference lacks; its appended outputs are corrupt after a crash,
@@ -77,9 +80,13 @@ def run_distributed(fm, query_records: List, cfg, output_prefix: str,
     numpy arrays and Python objects only (RunStats, VariantCollector), so
     any process can load it, with or without a card.
     """
+    from gsalign_tpu_torch.parallel import mesh as mesh_lib
     from gsalign_tpu_torch.pipeline import align as align_mod
     from gsalign_tpu_torch.pipeline.variants import VariantCollector, write_vcf
+    from gsalign_tpu_torch.utils.device import resolve_device
 
+    if mesh is None:
+        mesh = mesh_lib.local_mesh(resolve_device(device))
     pid, nproc = world()
     group = _control_group()
     cfg = cfg.effective()
@@ -100,7 +107,7 @@ def run_distributed(fm, query_records: List, cfg, output_prefix: str,
         st, coll, res = align_mod.compare_genomes(
             fm, [query_records[ci]], cfg, output_prefix=part,
             verbose=verbose, device=device, write_vcf_file=False,
-            plot_prefix=output_prefix)
+            plot_prefix=output_prefix, mesh=mesh)
         with open(part + ".pkl.tmp", "wb") as fh:
             pickle.dump((st, coll), fh)
         os.replace(part + ".pkl.tmp", part + ".pkl")       # commit marker
@@ -109,8 +116,9 @@ def run_distributed(fm, query_records: List, cfg, output_prefix: str,
     # host-side chromosome threading (the reference's -t maps to pthread
     # stage workers, src/GSAlign.cpp:492-526): threads overlap one
     # chromosome's host stages with another's device stages. Every thread
-    # launches on the device's current stream, which they share, so the
-    # launches run one after another on the card; outputs merge by index.
+    # launches on the device's current stream, or on the mesh's streams
+    # (made with the mesh), which they share, so the launches of a stream
+    # run one after another on the card; outputs merge by index.
     n_workers = min(max(1, cfg.thread_num), max(1, len(owned)))
     if n_workers > 1:
         from concurrent.futures import ThreadPoolExecutor

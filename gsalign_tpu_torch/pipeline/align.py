@@ -44,6 +44,7 @@ class RunStats:
     dup_aln_num: int = 0
     stage_times: dict = dataclasses.field(default_factory=dict)
     seed_scan_iterations: list = dataclasses.field(default_factory=list)
+    seed_scan_launches: list = dataclasses.field(default_factory=list)
 
     @property
     def ani(self) -> float:
@@ -102,8 +103,17 @@ def compare_genomes(fm: FMIndex,
                     verbose: bool = True,
                     device=None,
                     write_vcf_file: bool = True,
-                    plot_prefix: Optional[str] = None):
+                    plot_prefix: Optional[str] = None,
+                    mesh=None,
+                    shard_index_rows: bool = False):
     """Run the full comparison. query_records: [(name, ascii uint8[]), ...].
+
+    With a mesh (parallel/mesh.Mesh) the seed lanes and the DP problems are
+    split over its entries, whose first is the device (a `device` that
+    names another raises); with shard_index_rows too, the index's t3 and
+    sa_samples rows are cut over the entries instead and the seed lanes
+    stay whole (mesh.shard_index_rows). The outputs are byte-identical for
+    any mesh.
 
     The two batched device stages — the seed scan and the gap DP — run on
     `device`: the CUDA card when None (an error without one), the CPU for
@@ -120,11 +130,20 @@ def compare_genomes(fm: FMIndex,
     Returns (RunStats, VariantCollector, [ChromosomeResult]).
     """
     cfg = cfg.effective()
+    if mesh is not None:
+        from gsalign_tpu_torch.parallel import mesh as mesh_lib
+        first = mesh.devices[0]
+        if device is not None and mesh_lib.indexed_device(device) != first:
+            raise ValueError(f"device {device} is not the mesh's first "
+                             f"entry {first}")
+        device = first
     device = resolve_device(device)
     genome = fm.genome
     chr_index = ChrLocIndex(genome)
     ref_chars = genome.chars_fwd_rc()
     dfm = DeviceFMIndex.from_host(fm, device)
+    if shard_index_rows and mesh is not None:
+        dfm = mesh_lib.shard_index_rows(dfm, mesh)
     stats = RunStats()
     timer = StageTimer()
     collector = VariantCollector()
@@ -161,8 +180,9 @@ def compare_genomes(fm: FMIndex,
             max_seed_freq=cfg.max_seed_freq,
             sensitive=cfg.sensitive,
             chunk=cfg.seed_exploration_chunk,
-            stats=seed_stats)
+            stats=seed_stats, mesh=mesh, fm=fm)
     stats.seed_scan_iterations = seed_stats["scan_iterations"]
+    stats.seed_scan_launches = seed_stats["scan_launches"]
     log(f"\t[seed] {seed_stats['scan_lanes']} lanes, scan iterations per "
         f"round: {seed_stats['scan_iterations']}", verbose)
 
@@ -173,7 +193,7 @@ def compare_genomes(fm: FMIndex,
     # arrive in one device->host copy.
     aligner = dp_ops.FragmentAligner(
         bucket_sizes=cfg.dp_buckets, batch_cells=cfg.dp_batch_cells,
-        device=device)
+        device=device, mesh=mesh)
     planned = []                   # (qname, qry_chars, blocks, jobs, lo, hi)
     for qc_idx, (qname, qry_chars) in enumerate(query_records):
         log(f"\tProcess query chromosome: {qname}...", verbose)

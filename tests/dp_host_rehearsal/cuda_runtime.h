@@ -38,7 +38,7 @@ struct uint4 { uint32_t x, y, z, w; };
 inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) { return uint4{a, b, c, d}; }
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-constexpr int cudaSuccess = 0, cudaErrorInvalidValue = 1;
+constexpr int cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorPeerAccessAlreadyEnabled = 704;
 constexpr int cudaFuncAttributeMaxDynamicSharedMemorySize = 8;
 enum { cudaLaunchAttributeCooperative = 2, cudaLaunchAttributeClusterDimension = 4 };
 enum { cudaDevAttrMultiProcessorCount = 16 };
@@ -47,6 +47,7 @@ struct cudaLaunchConfig_t { dim3 gridDim, blockDim; size_t dynamicSmemBytes; cud
 template <class K> cudaError_t cudaFuncSetAttribute(K, int, int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
 inline cudaError_t cudaGetDevice(int* dev) { *dev = 0; return 0; }
+inline cudaError_t cudaDeviceEnablePeerAccess(int, unsigned) { return cudaErrorPeerAccessAlreadyEnabled; }
 inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) { *v = 5; return 0; }
 template <class K> cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) { *n = 2; return 0; }
 

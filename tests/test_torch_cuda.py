@@ -579,3 +579,136 @@ def test_device_tables_are_laid_out_once_per_device(card):
     on_cpu = rank.DeviceFMIndex.from_host(fm, "cpu")
     assert on_cpu is not on_card and on_cpu.device.type == "cpu"
     assert torch.equal(on_cpu.t3, on_card.t3.cpu())
+
+
+def four_entries(card):
+    from gsalign_tpu_torch.parallel import mesh as mesh_lib
+    return mesh_lib.make_mesh([card] * 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True])
+def test_row_sharded_kernels_match_plain_on_card(card, monkeypatch, wide):
+    """The ShardedTable instances of seed_scan and resolve_sa on an sa_intv
+    8 index cut into 4 row blocks on the card: equal to the plain versions
+    on the whole tables (resolve_sa at every rank, so at every block edge),
+    each launch counted as the sharded instance's."""
+    from gsalign_tpu_torch.parallel import mesh as mesh_lib
+    monkeypatch.delenv("GSALIGN_SA_MODE", raising=False)
+    g, queries = genome_and_queries(91)
+    dfm = rank.DeviceFMIndex.from_host(
+        build_fmindex(g, sa_intv=8, force_wide=wide), card)
+    cut = mesh_lib.shard_index_rows(dfm, four_entries(card))
+    for q_rows, starts, stops, prm in scan_cases(
+            dfm, queries, min_seed_length=12, chunk=300, max_out_cap=4):
+        n0 = (seed_cuda.seed_scan.launches,
+              seed_cuda.seed_scan.sharded_launches)
+        st, recs = seeding.scan_lanes(cut, q_rows, starts, stops, prm)
+        assert (seed_cuda.seed_scan.launches,
+                seed_cuda.seed_scan.sharded_launches) == (n0[0], n0[1] + 1)
+        st_p, recs_p = seeding.scan_lanes(dfm, q_rows, starts, stops, prm,
+                                          plain=True)
+        np.testing.assert_array_equal(st, st_p)
+        np.testing.assert_array_equal(recs, recs_p)
+    k = torch.arange(dfm.seq_len + 1, dtype=torch.int64, device=card)
+    n0 = seed_cuda.resolve_sa.sharded_launches
+    assert torch.equal(seed_cuda.resolve_sa(cut, k),
+                       rank.resolve_sa(dfm, k))
+    assert seed_cuda.resolve_sa.sharded_launches == n0 + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [512, 2])
+def test_row_sharded_lockstep_matches_plain_on_card(card, monkeypatch, K):
+    """seed_lockstep's ShardedTable instance in pallas mode on a full-SA
+    index with t3 cut into 4 blocks: the host loop's lane state, counters
+    and records on the whole tables."""
+    from gsalign_tpu_torch.parallel import mesh as mesh_lib
+    monkeypatch.setattr(seeding, "_SA_GATHER_K", K)
+    monkeypatch.setenv("GSALIGN_SA_MODE", "pallas")
+    g, queries = genome_and_queries(92)
+    dfm = rank.DeviceFMIndex.from_host(build_fmindex(g, sa_intv=1), card)
+    cut = mesh_lib.shard_index_rows(dfm, four_entries(card))
+    assert set(cut.row_shards) == {"t3"}
+    for q_rows, starts, stops, prm in scan_cases(
+            dfm, queries, min_seed_length=12, chunk=300, max_out_cap=4):
+        want = seeding.ScanLanes.start(starts, stops, prm.max_out, card)
+        seeding.scan_lockstep(dfm, q_rows, want, prm, plain=True)
+        got = seeding.ScanLanes.start(starts, stops, prm.max_out, card)
+        n0 = seed_cuda.seed_lockstep.sharded_launches
+        seed_cuda.seed_lockstep(cut, q_rows, got, prm)
+        assert seed_cuda.seed_lockstep.sharded_launches == n0 + 1
+        assert torch.equal(got.buf, want.buf)
+        assert torch.equal(got.out, want.out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sa_mode", ["xla", "pallas"])
+def test_mesh_of_four_entries_on_one_card(card, monkeypatch, sa_mode):
+    """A mesh of 4 entries on the one card (a stream each): the seeds of
+    the run without a mesh, one scan launch a stripe that holds lanes (in
+    pallas mode on one shared stream), and FragmentAligner's ops with every
+    DP launch cut in four."""
+    from gsalign_tpu_torch.parallel import mesh as mesh_lib
+    monkeypatch.setenv("GSALIGN_SA_MODE", sa_mode)
+    g, queries = genome_and_queries(93)
+    dfm = rank.DeviceFMIndex.from_host(build_fmindex(g, sa_intv=1), card)
+    mesh = four_entries(card)
+    assert mesh.devices == (torch.device("cuda", 0),) * 4
+    kw = dict(min_seed_length=12, chunk=300, max_out_cap=4)
+    want = seeding.find_seeds_all(dfm, queries, **kw)
+    wrapper = seed_cuda.seed_lockstep if sa_mode == "pallas" \
+        else seed_cuda.seed_scan
+    n0, stats = wrapper.launches, {}
+    got = seeding.find_seeds_all(dfm, queries, mesh=mesh, stats=stats, **kw)
+    for a, b in zip(got, want):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    B = stats["scan_lanes"]
+    assert wrapper.launches - n0 == sum(stats["scan_launches"])
+    assert stats["scan_launches"][0] == -(-B // -(-B // 4)) > 1
+    rng = np.random.default_rng(4)
+    rf = [rng.integers(0, 4, int(rng.integers(1, 600))).astype(np.uint8)
+          for _ in range(11)]
+    qf = [np.where(rng.random(len(r)) < 0.05, (r + 1) % 4, r)
+          .astype(np.uint8) for r in rf]
+    base = tdp.align_fragments(rf, qf, device=card)
+    d0 = dp_cuda.dp_small.launches + dp_cuda.dp_any.launches
+    split = tdp.align_fragments(rf, qf, mesh=mesh)
+    n_buckets = len({tdp.bucket_of(max(len(a), len(b)), (64, 128, 256, 512,
+                                                         1024))
+                     for a, b in zip(rf, qf)})
+    assert dp_cuda.dp_small.launches + dp_cuda.dp_any.launches - d0 \
+        == 4 * n_buckets
+    for a, b in zip(base, split):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_threads_share_a_mesh_of_four_entries_on_one_card(card, monkeypatch,
+                                                           tmp_path):
+    """run_distributed with -t 2 over a mesh of 4 entries on the card, in
+    pallas mode: both threads launch their lock-step stripes on the one
+    stream the mesh made for the card, and the bytes are the run's without
+    a mesh."""
+    import dataclasses
+    from gsalign_tpu_torch.config import AlignConfig
+    from gsalign_tpu_torch.genome.packing import pack_genome
+    from gsalign_tpu_torch.parallel import distributed
+    from gsalign_tpu_torch.pipeline.align import compare_genomes
+    from make_testdata import make_pair
+    monkeypatch.setenv("GSALIGN_SA_MODE", "pallas")
+    ref, qry = make_pair(total_len=60_000, n_chr=2, seed=5)
+    fm = build_fmindex(pack_genome(ref))
+    cfg = dataclasses.replace(AlignConfig(), thread_num=2)
+    one, two = str(tmp_path / "one"), str(tmp_path / "two")
+    compare_genomes(fm, qry, cfg, output_prefix=one, verbose=False,
+                    device=card)
+    n0 = seed_cuda.seed_lockstep.launches
+    distributed.run_distributed(fm, qry, cfg, two, verbose=False,
+                                device=card, mesh=four_entries(card))
+    assert seed_cuda.seed_lockstep.launches > n0
+    for ext in (".maf", ".vcf"):
+        with open(one + ext, "rb") as a, open(two + ext, "rb") as b:
+            assert [ln for ln in a if not ln.startswith(b"##reference")] \
+                == [ln for ln in b if not ln.startswith(b"##reference")]

@@ -185,9 +185,9 @@ def test_query_rows_are_32_bit_and_match_jax():
     (8, True, 4)])
 def test_find_seeds_all_matches_jax_through_the_new_dispatch(
         monkeypatch, sa_intv, sensitive, cap):
-    """find_seeds_all through scan_lanes and seed_scan's wrapper (on the
-    CPU its plain version) equals the JAX package's find_seeds_all, and
-    records one iteration count per round."""
+    """find_seeds_all through scan_lanes and seed_scan's wrapper (its
+    launch half, scan_launch; on the CPU the plain version) equals the JAX
+    package's find_seeds_all, and records one iteration count per round."""
     monkeypatch.delenv("GSALIGN_SA_MODE", raising=False)
     refs, queries = multi_chromosome_case(31)
     g = genome_of(refs)
@@ -201,9 +201,9 @@ def test_find_seeds_all_matches_jax_through_the_new_dispatch(
     stats = {}
     n0 = seed_cuda.seed_scan.launches
     calls = []
-    wrapper = seed_cuda.seed_scan
-    monkeypatch.setattr(seed_cuda, "seed_scan", lambda *a: (
-        calls.append(1), wrapper(*a))[1])
+    wrapper, launch = seed_cuda.seed_scan, seed_cuda.scan_launch
+    monkeypatch.setattr(seed_cuda, "scan_launch", lambda *a: (
+        calls.append(1), launch(*a))[1])
     got = tseeding.find_seeds_all(dfm, queries, stats=stats, **kw)
     # one wrapper call per round, and no launch on the CPU
     assert len(calls) == len(stats["scan_iterations"])

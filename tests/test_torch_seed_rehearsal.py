@@ -231,3 +231,61 @@ def test_row_decode_on_carry_rows(host_lib, wide):
     want = trank.occ_t3(dfm, k, tri != 0, cls)
     assert torch.equal(out, want)
     assert (int(want.min()) >= 2 ** 32) == wide
+
+
+def boundary_ranks(dfm, rows: int, n: int) -> torch.Tensor:
+    """Ranks in the first and the last row of every block of `rows` t3
+    rows (each row holds 128 ranks), within [0, seq_len]."""
+    k = []
+    for s in range(n):
+        for r in (s * rows, (s + 1) * rows - 1):
+            k += [128 * r, 128 * r + 127]
+    return torch.from_numpy(np.clip(np.asarray(k, dtype=np.int64), 0,
+                                    dfm.seq_len))
+
+
+@pytest.mark.parametrize("kernel,wide", [
+    ("resolve_sa", False), ("resolve_sa", True), ("seed_scan", False),
+    ("seed_scan", True), ("seed_lockstep", False)])
+def test_row_sharded_tables_on_host_threads(host_lib, pair, case, sampled,
+                                            kernel, wide):
+    """The kernels' ShardedTable instances on tables cut in 3
+    (parallel/mesh.shard_index_rows over three CPU entries): resolve_sa
+    from the first and last rank of every block, and others, against the
+    plain walk over the whole tables, and the scans against the plain scan
+    on the whole tables (seed_scan on
+    the sampled indexes; seed_lockstep in pallas mode on the full-SA index,
+    whose narrow rows are the only ones it takes cut)."""
+    from gsalign_tpu_torch.parallel import mesh as mesh_lib
+    mesh = mesh_lib.make_mesh(["cpu"] * 3)
+    whole = case[0] if kernel == "seed_lockstep" else sampled[wide]
+    cut = mesh_lib.shard_index_rows(whole, mesh)
+    rows = cut.row_shards["t3"].rows
+    assert cut.t3.shape[0] == 0 and len(cut.row_shards["t3"].blocks) == 3
+    if kernel == "resolve_sa":
+        k = torch.cat([probe_ranks(whole, 40), boundary_ranks(whole, rows,
+                                                              3)])
+        out = torch.full_like(k, -1)
+        args = seed_cuda._resolve_args(cut, k, out)
+        assert args.t3_shards.rows == rows
+        assert host_lib.gsalign_resolve_sa(ctypes.byref(args), None) == 0
+        assert torch.equal(out, trank.resolve_sa(whole, k))
+    else:
+        _, q_rows, starts, stops = lanes_of(whole, pair[1])
+        prm = params("pallas" if kernel == "seed_lockstep" else "none")
+        want = tseeding.ScanLanes.start(starts, stops, prm.max_out, "cpu")
+        tseeding.scan_lockstep(whole, q_rows, want, prm, plain=True)
+        got = tseeding.ScanLanes.start(starts, stops, prm.max_out, "cpu")
+        if kernel == "seed_lockstep":
+            seed_cuda.launch_lockstep(host_lib, None, cut, q_rows, got, prm,
+                                      0, None)
+        else:
+            args = seed_cuda._seed_args(
+                cut, q_rows, got, prm,
+                win_words=seed_cuda._win_words(got.max_len),
+                step_cap=seed_cuda._step_cap(got.max_len))
+            assert host_lib.gsalign_seed_scan(ctypes.byref(args), None) == 0
+        np.testing.assert_array_equal(got.read_back()[0],
+                                      want.read_back()[0])
+        assert torch.equal(got.out, want.out)
+        assert want.read_back()[0][tseeding.F_OUT_N].sum() > 0
