@@ -9,6 +9,10 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py seed       # phases 1 and 6 (the seed kernels)
     python3 chip_smoke.py wide-big   # phase 1, then a 1.08 Gb wide index
                                      # (2N > 2^31): minutes, tens of GB
+    python3 chip_smoke.py tools      # phase 1, the 4.6 Mb pair, phase 9
+    python3 chip_smoke.py 3gb [LEN]  # phase 1, then config 5 (3.1 Gb, or
+                                     # LEN bases) through tools/run_3gb:
+                                     # most of an hour, ~18 B a text row
 
 Phases (each raises on failure; nothing is caught):
   1. the card (nvidia-smi name and power limit), the torch and CUDA
@@ -69,12 +73,23 @@ Phases (each raises on failure; nothing is caught):
      on the cut tables and timed beside the whole-table instances;
      dryrun_multichip(4);
   8. the seed stage's device operations per scan in both SA modes, under
-     torch.profiler.
+     torch.profiler;
+  9. the port's tools (gsalign_tpu_torch/tools/): run_3gb at 2 Mb with
+     whole tables and, from the index it saved, with the rows cut over 4
+     entries of the card, each with the JAX tool's counts and equal MAF
+     and VCF bytes; profile_pipeline on the 4.6 Mb pair, one timed run.
 wide-big: a 1,080,000,000-base random genome (2N = 2.16e9 > 2^31; the
 JAX package's tests/test_wide_e2e.py), its index built once; a 200 kb
 query seeded (coordinates past 2^31, seeds equal to the text), seed_scan
 and resolve_sa held against their plain versions on that run's lanes and
 ranks, and a mutated 2 Mb slice aligned through compare_genomes.
+3gb: BASELINE.json config 5 (two chromosomes, 3.1 Gb: a 6.2 G-row wide
+index, sa_intv 8) built, saved, laid out on the card and aligned by
+gsalign_tpu_torch/tools/run_3gb.py (three 8 Mb slices), its counts held
+against the JAX tool's record; a 200 kb query whose seeds lie past 2^32,
+seed_scan and resolve_sa held against their plain versions on it; below
+2.75 Gb also a synthetic t3 of more than 2^32 words laid out, uploaded and
+decoded.
 Every align run sets the kernels' launch counts to 0 just before it and
 reads them just after. Each kernel's bound is the larger of its bytes over
 the card's memory rate and its operations over the card's integer rate,
@@ -1787,6 +1802,236 @@ def phase_wide_big():
                              "JAX package's test requires")
 
 
+# run_3gb at 2 Mb (--len 2000000 --slice-len 100000): the counts of the
+# JAX tool's run, which tests/test_torch_run3gb_driver.py holds the port's
+# CPU run to (with byte-identical MAF and VCF)
+TOOLS_ARGS = ["--len", "2000000", "--slice-len", "100000"]
+EXPECT_RUN3GB_2MB = {"alignments": 3, "aligned_bp": 300_000,
+                     "query_bp": 300_000, "ani_pct": 99.51, "snv": 1456,
+                     "ins": 0, "dele": 0, "wide": False, "sa_intv": 1}
+# The JAX tool's run of BASELINE.json config 5 (docs/SCALING_3GB.md:40-48)
+CONFIG5_LEN = 3_100_000_000
+JAX_3GB = {"alignments": 3, "aligned_bp": 24_000_000, "ani_pct": 99.5,
+           "snv": 120_141, "ins": 0, "dele": 0,
+           "max_text_rpos": 5_735_000_000, "wide": True, "sa_intv": 8}
+
+
+def phase_tools(d46: str) -> dict:
+    """The port's tools on the card. run_3gb at 2 Mb twice into one
+    directory: whole tables (--entries 1, the card's default), then the
+    index it saved (--index) with its rows cut over MESH_ENTRIES entries of
+    the card (--entries MESH_ENTRIES); each with EXPECT_RUN3GB_2MB's counts
+    and the seed_scan instance of its tables launched, counts set to 0 just
+    before it and read just after; their MAF and VCF bytes equal. Then
+    profile_pipeline on the 4.6 Mb pair in d46, one timed run after the
+    warm-up, every stage printed. Returns {tag: run}."""
+    import torch
+    from gsalign_tpu_torch.tools import profile_pipeline, run_3gb
+    out = os.path.join(WORK, "run3gb")
+    runs, files = {}, {}
+    for entries in (1, MESH_ENTRIES):
+        tag = f"run3gb-2mb-{entries}"
+        argv = TOOLS_ARGS + ["--out", out, "--device", "cuda", "--entries",
+                             str(entries)]
+        if entries > 1:
+            argv += ["--index", f"{out}/idx"]
+        zero_counts()
+        t0 = time.time()
+        res = run_3gb.run(run_3gb.parse_args(argv))[0]
+        wall = time.time() - t0
+        launches = launch_counts()
+        files[entries] = (read(f"{out}/out.maf"), read(f"{out}/out.vcf"))
+        got = {k: res[k] for k in EXPECT_RUN3GB_2MB}
+        say(f"[tools] {tag}: wall {wall:.2f} s; result {json.dumps(res)}; "
+            f"kernel launches {launches}")
+        if got != EXPECT_RUN3GB_2MB or res["mesh_devices"] != entries:
+            raise AssertionError(f"{tag}: {got} differs from the JAX "
+                                 f"tool's counts {EXPECT_RUN3GB_2MB}")
+        scan = "seed_scan" if entries == 1 else "seed_scan_sharded"
+        if launches[scan] <= 0:
+            raise AssertionError(f"{tag}: {scan} never ran: {launches}")
+        runs[tag] = {"wall": wall, "launches": launches}
+    if files[1] != files[MESH_ENTRIES]:
+        raise AssertionError("run_3gb: the row-sharded run's MAF or VCF "
+                             "differs from the whole-table run's")
+    say(f"[tools] run_3gb 2 Mb: whole tables and {MESH_ENTRIES} row blocks "
+        f"give the same out.maf ({len(files[1][0])} bytes) and out.vcf "
+        f"({len(files[1][1])} bytes)")
+    times = profile_pipeline.profile(d46, torch.device("cuda"), 1)[0]
+    if tuple(times) != profile_pipeline.STAGES:
+        raise AssertionError(f"profile_pipeline timed {list(times)}")
+    say("[tools] profile_pipeline 4.6 Mb (PROF_REPS=1): " + " ".join(
+        f"{k}={v:.4f}" for k, v in times.items())
+        + f" TOTAL={sum(times.values()):.4f}")
+    return runs
+
+
+# rows of the synthetic t3 of rows_past_2_32: 2^32 words and 102,400 more
+PAST_2_32_ROWS = (1 << 32) // 100 + 1024
+
+
+def rows_past_2_32(dfm):
+    """A t3 of more than 2^32 words through the port's layout, upload and
+    row decode: random checkpoints below 2^34 and symbol bytes below 0x40
+    for PAST_2_32_ROWS rows, laid out by the wide layout (rank._wide_rows)
+    on the host and uploaded by DeviceFMIndex.from_tables beside dfm's
+    other tables; rows sampled on the card equal the host's; then the
+    occ_rows kernel (WholeTable) against the plain occ_t3, which gathers
+    the rows by torch indexing, on 50,000 ranks in the last 4,096 rows and
+    on 50,000 anywhere."""
+    import torch
+    from gsalign_tpu_torch.ops import rank, seed_cuda
+    from gsalign_tpu_torch.ops.rank import DeviceFMIndex
+    dev = dfm.device
+    n3 = PAST_2_32_ROWS
+    rng = np.random.default_rng(17)
+    t0 = time.time()
+    t3_cp = rng.integers(0, 1 << 34, (n3, 64), dtype=np.int64)
+    t3_packed = rng.integers(0, 1 << 32, n3 * 32, dtype=np.uint32)
+    t3_packed &= 0x3F3F3F3F
+    t1 = time.time()
+    rows3 = rank._wide_rows(t3_cp, t3_packed)
+    del t3_cp, t3_packed
+    t2 = time.time()
+    tabs = {f: getattr(dfm, f).cpu().numpy()
+            for f in ("union", "t3_major", "l2", "c64", "t3_exc_pos",
+                      "t3_exc_chr", "comb_pairs", "init_corr", "text_rows",
+                      "sa_rows")}
+    tabs.update(t3=rows3, sa_samples=dfm.sa_samples[:1].cpu().numpy(),
+                init_order=dfm.init_order, sa_intv=dfm.sa_intv,
+                direct_ok=dfm.direct_ok, wide=dfm.wide)
+    syn = DeviceFMIndex.from_tables(tabs, None, dfm.seq_len, dfm.primary,
+                                    device=dev)
+    torch.cuda.synchronize()
+    t_up = time.time()
+    pick = np.concatenate([[0, n3 // 2], np.arange(n3 - 4, n3)])
+    if not np.array_equal(syn.t3[torch.from_numpy(pick).to(dev)].cpu()
+                          .numpy().view(np.uint32), rows3[pick]):
+        raise AssertionError("the uploaded t3 rows differ from the host's")
+    words = rows3.size
+    del rows3, tabs
+    n = 50_000
+    gen = torch.Generator(device=dev).manual_seed(17)
+    rows = torch.cat([
+        n3 - 1 - torch.randint(0, 4096, (n,), device=dev, generator=gen),
+        torch.randint(0, n3, (n,), device=dev, generator=gen)])
+    k = rows * 128 + torch.randint(0, 128, (2 * n,), device=dev,
+                                   generator=gen)
+    tri = torch.randint(0, 2, (2 * n,), device=dev, generator=gen) == 1
+    cls = torch.randint(0, 64, (2 * n,), device=dev, generator=gen)
+    cls = torch.where(tri, cls, cls & 3)
+    got = seed_cuda.occ_rows(syn, k, cls, tri.long())
+    want = rank.occ_t3(syn, k, tri, cls)
+    err = int((got - want).abs().max())
+    del syn
+    torch.cuda.empty_cache()
+    if err:
+        raise AssertionError("occ_rows differs from the plain occ_t3 on "
+                             "rows past 2^32 words")
+    say(f"[3gb] a t3 of {words} words (> 2^32, synthetic): random planes "
+        f"{t1 - t0:.1f} s, wide layout {t2 - t1:.1f} s, upload "
+        f"{t_up - t2:.1f} s, rows on the card equal the host's; occ_rows "
+        f"equal to the plain occ_t3 on {2 * n} ranks, {n} in rows >= "
+        f"{n3 - 4096}")
+
+
+def phase_3gb(total_len: int):
+    """BASELINE.json config 5 through gsalign_tpu_torch.tools.run_3gb on
+    the card (whole tables): the build, the save, the table layout and the
+    three-slice align, kernel counts set to 0 just before the tool and read
+    just after it (seed_scan, and resolve_sa on a sampled index, must
+    launch; the layout launches none), result.json held against the JAX
+    tool's record at CONFIG5_LEN, and on a shorter genome (a rung that the
+    host's memory allows) 3 alignments over every query base at ANI > 99,
+    wide past 2^31 text rows and coordinates past 2^31 past 2^32 rows.
+    Then, on the tables the align used: a 200 kb query, the reverse
+    complement of a mutated slice at 1 Mb, seeded (its loci lie past 2^32
+    where 2N > 2^32), 20 seeds checked against the text; seed_scan and
+    resolve_sa against their plain versions on its lanes and ranks; where
+    the index's t3 holds no more than 2^32 words, a synthetic t3 past them
+    laid out, uploaded and decoded (rows_past_2_32). The result's counts are
+    checked last: the log has them before any check can stop the phase."""
+    import resource
+    import torch
+    from gsalign_tpu_torch.ops import seeding
+    from gsalign_tpu_torch.ops.rank import DeviceFMIndex
+    from gsalign_tpu_torch.tools import run_3gb
+    free = subprocess.run(["free", "-g"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout
+    say(f"[3gb] host: {os.cpu_count()} cores; free -g:\n{free.rstrip()}")
+
+    # the tool's 8 Mb slices; a genome under 160 Mb (a quick rehearsal of
+    # this phase) gets slices of a twentieth of it
+    slice_len = min(8_000_000, total_len // 20)
+    zero_counts()
+    res, fm = run_3gb.run(run_3gb.parse_args(
+        ["--len", str(total_len), "--slice-len", str(slice_len), "--out",
+         os.path.join(WORK, "3gb"), "--device", "cuda"]))
+    launches = launch_counts()
+    say(f"[3gb] align: kernel launches {launches}")
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+    say(f"[3gb] peak RSS {peak:.1f} GB; device tables "
+        f"{res['device_table_gib']} GiB; seconds: build "
+        f"{res['build_wall_s']} (SA-IS {res['sa_wall_s']}), save "
+        f"{res['save_wall_s']}, table layout {res['table_layout_s']}, align "
+        f"{res['align_wall_s']} (" + ", ".join(
+            f"{k} {res[f'{k}_s']}" for k in run_3gb.STAGES) + ")")
+    dfm = DeviceFMIndex.from_host(fm, torch.device("cuda"))
+    past = 2 ** 32 if fm.seq_len > 2 ** 32 + 4_000_000 else 2 ** 31
+    sl = run_3gb.mutate(fm.genome.codes_fwd[1_000_000:1_200_000],
+                        np.random.default_rng(13))
+    qry = (3 - sl[::-1]).astype(np.uint8)
+    seeding.find_seeds_all(dfm, [qry])                   # warm
+    torch.cuda.synchronize()
+    t0 = time.time()
+    q_pos, r_pos, length = seeding.find_seeds_all(dfm, [qry])[0]
+    seed_s = time.time() - t0
+    text = fm.genome.codes_fwd_rc()
+    for i in np.random.default_rng(1).integers(0, len(q_pos), 20):
+        qp, rp, ln = int(q_pos[i]), int(r_pos[i]), int(length[i])
+        if not np.array_equal(qry[qp:qp + ln], text[rp:rp + ln]):
+            raise AssertionError(f"3gb: seed {i} differs from the text")
+    if len(q_pos) <= 100 or (fm.seq_len > past
+                             and not (r_pos >= past).any()):
+        raise AssertionError(f"3gb: {len(q_pos)} seeds, none past {past}")
+    words = dfm.t3.numel()
+    say(f"[3gb] 200 kb query: {len(q_pos)} seeds, "
+        f"{int((r_pos >= past).sum())} of them at text positions >= "
+        f"{past} (largest {int(r_pos.max())}); 20 checked against the "
+        f"text; seed stage {seed_s:.3f} s; t3 {dfm.t3.shape[0]} rows x "
+        f"{dfm.t3.shape[1]} = {words} words "
+        f"({'past' if words > 2 ** 32 else 'below'} 2^32)")
+    scan_check("3gb", dfm, [qry])
+    if not dfm.direct_ok:
+        rs = resolve_check("3gb", dfm, [qry])
+        k = hit_ranks_of(dfm, [qry])
+        say(f"[3gb] resolve_sa: {int((k >= 2 ** 32).sum())} of "
+            f"{k.numel()} ranks >= 2^32 (largest {int(k.max())}); "
+            f"{rs['ms']:.4f} ms against plain {rs['plain_ms']:.1f} ms")
+    if dfm.wide and words <= 2 ** 32:
+        rows_past_2_32(dfm)
+    want = ("seed_scan",) + (() if dfm.direct_ok else ("resolve_sa",))
+    missing = [k for k in want if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"3gb: {missing} never ran in the align")
+    if total_len == CONFIG5_LEN:
+        got = {k: res[k] for k in JAX_3GB}
+        if got != JAX_3GB:
+            raise AssertionError(f"3gb: {got} differs from the JAX tool's "
+                                 f"record {JAX_3GB}")
+        say("[3gb] every count equals the JAX tool's record")
+    elif not (res["alignments"] == 3
+              and res["aligned_bp"] == res["query_bp"]
+              and res["ani_pct"] > 99
+              and res["wide"] == (fm.seq_len >= 2 ** 31)
+              and (res["int64_coords_seen"] or fm.seq_len < 2 ** 32)):
+        raise AssertionError(f"3gb at {total_len} bases: {res}")
+    else:
+        say(f"[3gb] {total_len} bases (no JAX record at this length): 3 "
+            f"alignments over every query base, ANI {res['ani_pct']}, "
+            f"max text position {res['max_text_rpos']}")
+
+
 def phase_sweep():
     """Times the plans the wrappers could pick (rows a lane K, warps a
     block, blocks a cluster) at the widths and batches of phase_kernels and
@@ -1875,6 +2120,26 @@ def main() -> int:
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
         return 0
+    if sys.argv[1:2] == ["3gb"] and len(sys.argv) <= 3:
+        # BASELINE.json config 5 (or a shorter genome, LEN bases): about
+        # 18 bytes of host memory a text row (PERF.md) and most of an hour
+        # at full scale. No result lines.
+        try:
+            phase_card()
+            phase_3gb(int(sys.argv[2]) if len(sys.argv) == 3
+                      else CONFIG5_LEN)
+        finally:
+            shutil.rmtree(WORK, ignore_errors=True)
+        return 0
+    if sys.argv[1:] == ["tools"]:
+        # the tools phase alone (about a minute). No result lines.
+        try:
+            phase_card()
+            d = make_data("4.6mb", 4_600_000)
+            phase_tools(d)
+        finally:
+            shutil.rmtree(WORK, ignore_errors=True)
+        return 0
     if sys.argv[1:] == ["seed"]:
         # the seed-stage kernels alone: build, the 4.6 Mb and 12 Mb data
         # and indexes, kernel against plain. No result lines.
@@ -1907,6 +2172,7 @@ def main() -> int:
         mesh = phase(phase_mesh, card, runs)
         totals.update(mesh["kernels"])
         phase(phase_profile)
+        tools = phase(phase_tools, os.path.join(WORK, "4.6mb"))
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     main_path = runs["4.6mb"]["launches"]
@@ -1918,6 +2184,9 @@ def main() -> int:
     say("[summary] mesh: " + "; ".join(
         f"{tag}: wall {r['wall']:.2f} s, scan launches {r['scan_launches']}"
         for tag, r in mesh["runs"].items()) + f" ({card})")
+    say("[summary] tools: " + "; ".join(
+        f"{tag}: wall {r['wall']:.2f} s" for tag, r in tools.items())
+        + f" ({card})")
     say("[summary] 4.6 Mb walls: " + ", ".join(
         f"{tag} {w:.2f} s" for tag, w in walls.items())
         + f"; suffix array at 12 Mb: torch on the card {sa['torch_s']:.3f} "

@@ -1,0 +1,278 @@
+"""Run BASELINE.json configuration 5 (3 Gb, the GRCh38-vs-CHM13 regime)
+through the port: build the ~6.2 G-row wide index on the host, lay its
+tables out on the device and align three query slices.
+
+    python -m gsalign_tpu_torch.tools.run_3gb [--len 3100000000] [--out DIR]
+        [--slice-len 8000000] [--device cuda|cpu] [--entries N]
+        [--index PREFIX]
+
+The data are the JAX package's tools/run_3gb.py data, so that the counts
+can be held against its record (docs/SCALING_3GB.md): default_rng(2026)'s
+uniform bases over two chromosomes (3/5 and 2/5 of --len), and
+default_rng(7)'s three query slices of --slice-len bases, a mutated forward
+slice of each chromosome and a mutated reverse-complemented slice of the
+first, whose locus lies past 2^31 in the index text at full scale.
+
+The index is built with build_fmindex(prefer_device=False) (native SA-IS),
+the suffix array timed inside the build so that the build still frees it
+early, and saved to {out}/idx; --index PREFIX loads an index that an
+earlier run saved instead. --device cuda (the default) raises without a
+card. The tables are laid out on the device once; then the host's rank
+planes are freed. With --entries 1 (the default on the card) the tables
+are whole: compare_genomes on the device, the main path. With --entries
+N > 1 (8 by default on the CPU, the JAX tool's 8 virtual devices) the
+index's t3 and sa_samples rows are cut over a mesh of N entries of the one
+device (compare_genomes(mesh=, shard_index_rows=True)).
+
+Writes {out}/result.json, the JAX tool's keys with the same meanings plus
+device, table_layout_s, device_table_gib and the stage seconds (seed_s,
+chain_s, align_s, output_s, variants_s), and {out}/out.maf, {out}/out.vcf.
+The build's peak is SA-IS's: about 18 bytes of host memory a text row
+(79.6 GB at 4.4 G rows beside an NVIDIA H100 80GB HBM3, 700 W; PERF.md),
+about 112 GB at the full 6.2 G rows.
+"""
+
+from __future__ import annotations
+
+import argparse
+import gc
+import json
+import os
+import resource
+import subprocess
+import tempfile
+import time
+import numpy as np
+
+DNA = np.frombuffer(b"ACGT", dtype=np.uint8)
+STAGES = ("seed", "chain", "align", "output", "variants")
+
+
+def rss_gb() -> float:
+    """Peak resident set of this process so far, in GB."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+
+
+def say(msg: str) -> None:
+    print(f"[3gb] {msg}", flush=True)
+
+
+def make_genome(total_len: int):
+    """The two-chromosome random genome (3/5 and 2/5 of total_len), so
+    that multi-chromosome coordinates are exercised at int64 scale (the RC
+    half of chr2 lies wholly past 2^31 at full scale)."""
+    from gsalign_tpu_torch.genome.packing import Genome
+    l1 = total_len * 3 // 5
+    l2 = total_len - l1
+    codes = np.random.default_rng(2026).integers(0, 4, total_len,
+                                                 dtype=np.uint8)
+    return Genome(names=["big1", "big2"],
+                  lengths=np.asarray([l1, l2], dtype=np.int64),
+                  offsets=np.asarray([0, l1], dtype=np.int64),
+                  holes=[], codes_fwd=codes)
+
+
+def mutate(sl: np.ndarray, rng, rate: float = 0.005) -> np.ndarray:
+    """sl with a `rate` share of its bases substituted."""
+    out = sl.copy()
+    subs = rng.random(len(out)) < rate
+    out[subs] = (out[subs] + rng.integers(1, 4, subs.sum())) % 4
+    return out.astype(np.uint8)
+
+
+def make_queries(genome, slice_len: int) -> list:
+    """[(name, ASCII bases)]: mutated forward slices of both chromosomes
+    and a reverse-complemented mutated slice of the first, whose blocks
+    carry text positions 2N - l1/4 - slice_len."""
+    codes = genome.codes_fwd
+    l1, l2 = (int(x) for x in genome.lengths)
+    qrng = np.random.default_rng(7)
+    s1, s2, s_rc = l1 // 3, l1 + l2 // 2, l1 // 4
+    sl_rc = mutate(codes[s_rc:s_rc + slice_len], qrng)
+    return [
+        ("q_chr1_fwd", DNA[mutate(codes[s1:s1 + slice_len], qrng)]),
+        ("q_chr2_fwd", DNA[mutate(codes[s2:s2 + slice_len], qrng)]),
+        ("q_chr1_rc", DNA[(3 - sl_rc[::-1]).astype(np.uint8)]),
+    ]
+
+
+def build_index(genome, result: dict):
+    """build_fmindex(prefer_device=False) with the suffix array timed
+    inside it: a reference to the suffix array held here would keep the
+    build from freeing it before the t3 tables are made."""
+    from gsalign_tpu_torch.index import fmindex as fmindex_mod
+    orig = fmindex_mod.build_suffix_array
+
+    def timed_sa(codes, prefer_device=True):
+        t = time.time()
+        sa = orig(codes, prefer_device=False)
+        result["sa_wall_s"] = round(time.time() - t, 1)
+        result["sa_rss_gb"] = round(rss_gb(), 1)
+        say(f"SA-IS over {len(codes)} rows: {result['sa_wall_s']} s (peak "
+            f"RSS {result['sa_rss_gb']} GB)")
+        return sa
+
+    fmindex_mod.build_suffix_array = timed_sa
+    t0 = time.time()
+    try:
+        fm = fmindex_mod.build_fmindex(genome, prefer_device=False)
+    finally:
+        fmindex_mod.build_suffix_array = orig
+    result["build_wall_s"] = round(time.time() - t0, 1)
+    result["build_rss_gb"] = round(rss_gb(), 1)
+    return fm
+
+
+def card_name(device) -> str:
+    """nvidia-smi's name and power limit of the card, or "cpu"."""
+    if device.type != "cuda":
+        return "cpu"
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader", "-i", str(device.index or 0)],
+        capture_output=True, text=True, check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def lay_out_tables(fm, device, result: dict) -> None:
+    """The device tables (kept on fm for compare_genomes), their layout
+    seconds and bytes; then the host planes they were made from are freed.
+    Nothing the port keeps refers to those planes afterwards: the table
+    cache holds device tensors (uploaded copies, also on the CPU), and the
+    host_sa of a direct index keeps its own reference to sa_samples."""
+    import torch
+    from gsalign_tpu_torch.ops.rank import DeviceFMIndex
+    t0 = time.time()
+    dfm = DeviceFMIndex.from_host(fm, device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    result["table_layout_s"] = round(time.time() - t0, 1)
+    n_bytes = sum(v.numel() * v.element_size() for v in vars(dfm).values()
+                  if isinstance(v, torch.Tensor))
+    result["device_table_gib"] = round(n_bytes / 2 ** 30, 2)
+    fm.t3_cp = fm.t3_packed = fm.occ_cp = fm.bwt_packed = None
+    fm.sa_samples = fm.c8 = fm.c12 = None
+    gc.collect()
+    say(f"tables on {device} in {result['table_layout_s']} s: "
+        f"{result['device_table_gib']} GiB; host rank planes freed (peak "
+        f"RSS {rss_gb():.1f} GB)")
+
+
+def run(args):
+    """The tool on parsed arguments; returns (result.json's contents, the
+    FMIndex, whose device tables DeviceFMIndex.from_host(fm, device) still
+    returns)."""
+    import torch
+    from gsalign_tpu_torch.config import AlignConfig
+    from gsalign_tpu_torch.index.io import load_index, save_index
+    from gsalign_tpu_torch.parallel.mesh import make_mesh
+    from gsalign_tpu_torch.pipeline.align import compare_genomes
+    from gsalign_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(None if args.device == "cuda" else args.device)
+    entries = args.entries or (1 if device.type == "cuda" else 8)
+    os.makedirs(args.out, exist_ok=True)
+    result = {"total_len": args.total_len, "device": card_name(device)}
+    l1 = args.total_len * 3 // 5
+    if args.index:
+        t0 = time.time()
+        fm = load_index(args.index)
+        result["index"] = args.index
+        result["load_wall_s"] = round(time.time() - t0, 1)
+        g = fm.genome
+        if g.names != ["big1", "big2"] or g.lengths.tolist() != [
+                l1, args.total_len - l1]:
+            raise ValueError(f"{args.index} is not this tool's index at "
+                             f"--len {args.total_len}")
+        say(f"index loaded from {args.index}: {result['load_wall_s']} s")
+    else:
+        say(f"generating {args.total_len} bp over 2 chromosomes "
+            f"({l1} + {args.total_len - l1})")
+        g = make_genome(args.total_len)
+        fm = build_index(g, result)
+    result["wide"] = bool(fm.rank_dtype == np.int64)
+    result["sa_intv"] = int(fm.sa_intv)
+    if fm.seq_len != 2 * args.total_len:
+        raise AssertionError(f"index of {fm.seq_len} text rows for "
+                             f"{args.total_len} bases")
+    if fm.seq_len > (1 << 31) and not result["wide"]:
+        raise AssertionError("an index of more than 2^31 rows is not wide")
+    if not args.index:
+        say(f"index built: {result['build_wall_s']} s, wide="
+            f"{result['wide']}, sa_intv={fm.sa_intv}, peak RSS "
+            f"{result['build_rss_gb']} GB")
+        # insurance: a failure past here never costs the build again
+        t0 = time.time()
+        save_index(fm, os.path.join(args.out, "idx"))
+        result["save_wall_s"] = round(time.time() - t0, 1)
+        say(f"index saved to {args.out}/idx ({result['save_wall_s']} s)")
+    records = make_queries(g, args.slice_len)
+
+    lay_out_tables(fm, device, result)
+    mesh = make_mesh([device] * entries) if entries > 1 else None
+    result["mesh_devices"] = entries
+    t0 = time.time()
+    stats, collector, results = compare_genomes(
+        fm, records, AlignConfig(), output_prefix=os.path.join(args.out, "out"),
+        verbose=True, device=device, mesh=mesh,
+        shard_index_rows=mesh is not None)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    result.update({
+        "align_wall_s": round(time.time() - t0, 1),
+        "query_bp": 3 * args.slice_len,
+        "ani_pct": round(stats.ani, 2),
+        "alignments": stats.local_alignment_num,
+        "aligned_bp": stats.total_alignment_length,
+        "snv": collector.n_snv, "ins": collector.n_ins,
+        "dele": collector.n_del,
+        "peak_rss_gb": round(rss_gb(), 1),
+    })
+    for k in STAGES:
+        result[f"{k}_s"] = round(stats.stage_times.get(k, 0.0), 3)
+    # int64-coordinate evidence: the end of the last pair of a block on
+    # the RC strand lies past 2^31 at full scale
+    max_rpos = 0
+    for res in results:
+        for blk in res.blocks:
+            if blk.n:
+                max_rpos = max(max_rpos, int(blk.r_pos[-1] + blk.r_len[-1]))
+    result["max_text_rpos"] = max_rpos
+    result["int64_coords_seen"] = bool(max_rpos >= (1 << 31))
+    with open(os.path.join(args.out, "result.json"), "w") as fh:
+        json.dump(result, fh, indent=1)
+    say(json.dumps(result))
+    return result, fm
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(
+        prog="python -m gsalign_tpu_torch.tools.run_3gb",
+        description="Build and align BASELINE.json configuration 5 (3 Gb) "
+                    "on the port.")
+    ap.add_argument("--len", type=int, default=3_100_000_000,
+                    dest="total_len", help="genome bases (default 3.1 G)")
+    ap.add_argument("--out", default=os.path.join(tempfile.gettempdir(),
+                                                  "run3gb_torch"))
+    ap.add_argument("--slice-len", type=int, default=8_000_000,
+                    help="bases of each of the three query slices")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--entries", type=int, default=None,
+                    help="mesh entries over which t3 and sa_samples rows "
+                         "are cut (default 1 on the card, 8 on the CPU)")
+    ap.add_argument("--index", default=None, metavar="PREFIX",
+                    help="load this saved index instead of building one")
+    args = ap.parse_args(argv)
+    if args.entries is not None and args.entries < 1:
+        ap.error("--entries must be at least 1")
+    return args
+
+
+def main(argv=None) -> int:
+    run(parse_args(argv))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
