@@ -11,8 +11,9 @@ Run from the root of a checkout, on a machine with a CUDA card:
                                      # (2N > 2^31): minutes, tens of GB
     python3 chip_smoke.py tools      # phase 1, the 4.6 Mb pair, phase 9
     python3 chip_smoke.py 3gb [LEN]  # phase 1, then config 5 (3.1 Gb, or
-                                     # LEN bases) through tools/run_3gb:
-                                     # most of an hour, ~18 B a text row
+                                     # LEN bases) through tools/run_3gb and
+                                     # its --index restore: most of an
+                                     # hour, ~12.5 B a text row
 
 Phases (each raises on failure; nothing is caught):
   1. the card (nvidia-smi name and power limit), the torch and CUDA
@@ -85,11 +86,15 @@ and resolve_sa held against their plain versions on that run's lanes and
 ranks, and a mutated 2 Mb slice aligned through compare_genomes.
 3gb: BASELINE.json config 5 (two chromosomes, 3.1 Gb: a 6.2 G-row wide
 index, sa_intv 8) built, saved, laid out on the card and aligned by
-gsalign_tpu_torch/tools/run_3gb.py (three 8 Mb slices), its counts held
-against the JAX tool's record; a 200 kb query whose seeds lie past 2^32,
-seed_scan and resolve_sa held against their plain versions on it; below
-2.75 Gb also a synthetic t3 of more than 2^32 words laid out, uploaded and
-decoded.
+gsalign_tpu_torch/tools/run_3gb.py (three 8 Mb slices) in a process of
+its own, the host memory of every phase printed in bytes a text row, its
+counts held against the JAX tool's record; a 200 kb query whose seeds lie
+past 2^32, seed_scan and resolve_sa held against their plain versions on
+it; occ_rows against the plain occ_t3 on ranks in t3 rows past word 2^32
+(of the real t3 where it holds more than 2^32 words, else of a synthetic
+one). Once that process has exited, a second one restores the saved
+index (run_3gb --index), lays it out and aligns: the same counts and the
+same out.maf and out.vcf bytes.
 Every align run sets the kernels' launch counts to 0 just before it and
 reads them just after. Each kernel's bound is the larger of its bytes over
 the card's memory rate and its operations over the card's integer rate,
@@ -1878,9 +1883,9 @@ def rows_past_2_32(dfm):
     other tables; rows sampled on the card equal the host's; then the
     occ_rows kernel (WholeTable) against the plain occ_t3, which gathers
     the rows by torch indexing, on 50,000 ranks in the last 4,096 rows and
-    on 50,000 anywhere."""
+    on 50,000 anywhere (occ_rows_check)."""
     import torch
-    from gsalign_tpu_torch.ops import rank, seed_cuda
+    from gsalign_tpu_torch.ops import rank
     from gsalign_tpu_torch.ops.rank import DeviceFMIndex
     dev = dfm.device
     n3 = PAST_2_32_ROWS
@@ -1910,29 +1915,83 @@ def rows_past_2_32(dfm):
         raise AssertionError("the uploaded t3 rows differ from the host's")
     words = rows3.size
     del rows3, tabs
+    say(f"[3gb] a t3 of {words} words (> 2^32, synthetic): random planes "
+        f"{t1 - t0:.1f} s, wide layout {t2 - t1:.1f} s, upload "
+        f"{t_up - t2:.1f} s, rows on the card equal the host's")
+    occ_rows_check(syn, 0, "synthetic", None)
+    del syn
+    torch.cuda.empty_cache()
+
+
+# the first t3 row of a wide table whose words all lie past word 2^32
+# (a wide row is T3_ROW_WIDE = 100 words)
+FIRST_ROW_PAST_2_32 = -(-(1 << 32) // 100)
+
+
+def occ_rows_check(dfm, first_row: int, what: str, max_rank) -> None:
+    """The occ_rows kernel (WholeTable) against the plain occ_t3, which
+    gathers the rows by torch indexing, on 50,000 ranks in the last 4,096
+    t3 rows and 50,000 in rows from first_row on, triple and single-char
+    classes mixed; ranks above max_rank (the text's rows; None for a
+    synthetic table) are clamped to it."""
+    import torch
+    from gsalign_tpu_torch.ops import rank, seed_cuda
+    dev = dfm.device
+    n3 = dfm.t3.shape[0]
     n = 50_000
     gen = torch.Generator(device=dev).manual_seed(17)
     rows = torch.cat([
         n3 - 1 - torch.randint(0, 4096, (n,), device=dev, generator=gen),
-        torch.randint(0, n3, (n,), device=dev, generator=gen)])
+        torch.randint(first_row, n3, (n,), device=dev, generator=gen)])
     k = rows * 128 + torch.randint(0, 128, (2 * n,), device=dev,
                                    generator=gen)
+    if max_rank is not None:
+        k = k.clamp(max=max_rank)
     tri = torch.randint(0, 2, (2 * n,), device=dev, generator=gen) == 1
     cls = torch.randint(0, 64, (2 * n,), device=dev, generator=gen)
     cls = torch.where(tri, cls, cls & 3)
-    got = seed_cuda.occ_rows(syn, k, cls, tri.long())
-    want = rank.occ_t3(syn, k, tri, cls)
+    got = seed_cuda.occ_rows(dfm, k, cls, tri.long())
+    want = rank.occ_t3(dfm, k, tri, cls)
     err = int((got - want).abs().max())
-    del syn
-    torch.cuda.empty_cache()
     if err:
-        raise AssertionError("occ_rows differs from the plain occ_t3 on "
-                             "rows past 2^32 words")
-    say(f"[3gb] a t3 of {words} words (> 2^32, synthetic): random planes "
-        f"{t1 - t0:.1f} s, wide layout {t2 - t1:.1f} s, upload "
-        f"{t_up - t2:.1f} s, rows on the card equal the host's; occ_rows "
-        f"equal to the plain occ_t3 on {2 * n} ranks, {n} in rows >= "
-        f"{n3 - 4096}")
+        raise AssertionError(f"occ_rows differs from the plain occ_t3 on "
+                             f"the {what} t3's rows past 2^32 words "
+                             f"(max abs err {err})")
+    say(f"[3gb] occ_rows equal to the plain occ_t3 on the {what} t3 "
+        f"({n3} rows x {dfm.t3.shape[1]} words): {2 * n} ranks, {n} in "
+        f"the last 4096 rows, {n} in rows >= {first_row} (words >= "
+        f"{first_row * dfm.t3.shape[1]})")
+
+
+# the host memory the build may take at its peak, bytes a text row, held
+# from 2^31 rows on, where the process's fixed memory is under 0.3 B a row
+# (an H100 host with 96 GiB free holds 6.2 G rows at 14.5, 10 GB to spare)
+BUILD_B_PER_ROW = 14.5
+
+
+def config5_args(total_len: int) -> list:
+    """run_3gb's arguments for phase_3gb at total_len: the tool's 8 Mb
+    slices; a genome under 160 Mb (a quick rehearsal of the phase) gets
+    slices of a twentieth of it."""
+    return ["--len", str(total_len), "--slice-len",
+            str(min(8_000_000, total_len // 20)), "--device", "cuda"]
+
+
+def memory_lines(tag: str, res: dict) -> None:
+    """run_3gb's memory phases, a line each, in bytes a text row: the
+    phase's peak (from the kernel's peak reset phase by phase, or the RSS
+    sampled where the reset is refused, up to the layout; the align's is
+    its RSS at the end), the resident set at its end, the process's peak
+    so far."""
+    how = ("reset phase by phase" if res["memory_resets"]
+           else "RSS sampled every 20 ms up to the layout")
+    say(f"[3gb] {tag}memory, bytes a text row (peaks: {how}):")
+    for ph in res["memory"]:
+        say(f"[3gb] {tag}memory {ph['phase']:<28} peak "
+            f"{ph['peak_b_per_row']:7.3f} ({ph['peak_bytes'] / 1e9:5.1f} GB)"
+            f"  resident {ph['rss_b_per_row']:7.3f}  peak so far "
+            f"{ph['peak_so_far_b_per_row']:7.3f} "
+            f"({ph['peak_so_far_bytes'] / 1e9:5.1f} GB)")
 
 
 def phase_3gb(total_len: int):
@@ -1940,18 +1999,19 @@ def phase_3gb(total_len: int):
     the card (whole tables): the build, the save, the table layout and the
     three-slice align, kernel counts set to 0 just before the tool and read
     just after it (seed_scan, and resolve_sa on a sampled index, must
-    launch; the layout launches none), result.json held against the JAX
-    tool's record at CONFIG5_LEN, and on a shorter genome (a rung that the
-    host's memory allows) 3 alignments over every query base at ANI > 99,
-    wide past 2^31 text rows and coordinates past 2^31 past 2^32 rows.
-    Then, on the tables the align used: a 200 kb query, the reverse
-    complement of a mutated slice at 1 Mb, seeded (its loci lie past 2^32
-    where 2N > 2^32), 20 seeds checked against the text; seed_scan and
-    resolve_sa against their plain versions on its lanes and ranks; where
-    the index's t3 holds no more than 2^32 words, a synthetic t3 past them
-    laid out, uploaded and decoded (rows_past_2_32). The result's counts are
-    checked last: the log has them before any check can stop the phase."""
-    import resource
+    launch; the layout launches none), the host memory of each phase in
+    bytes a text row, result.json held against the JAX tool's record at
+    CONFIG5_LEN, and on a shorter genome (a rung that the host's memory
+    allows) 3 alignments over every query base at ANI > 99, wide past 2^31
+    text rows and coordinates past 2^31 past 2^32 rows. Then, on the
+    tables the align used: a 200 kb query, the reverse complement of a
+    mutated slice at 1 Mb, seeded (its loci lie past 2^32 where 2N >
+    2^32), 20 seeds checked against the text; seed_scan and resolve_sa
+    against their plain versions on its lanes and ranks; occ_rows against
+    the plain occ_t3 on t3 rows past word 2^32: the index's own where its
+    t3 holds more than 2^32 words, else a synthetic t3 laid out, uploaded
+    and decoded (rows_past_2_32). The result's counts are checked last:
+    the log has them before any check can stop the phase."""
     import torch
     from gsalign_tpu_torch.ops import seeding
     from gsalign_tpu_torch.ops.rank import DeviceFMIndex
@@ -1960,16 +2020,23 @@ def phase_3gb(total_len: int):
                           check=True, timeout=60).stdout
     say(f"[3gb] host: {os.cpu_count()} cores; free -g:\n{free.rstrip()}")
 
-    # the tool's 8 Mb slices; a genome under 160 Mb (a quick rehearsal of
-    # this phase) gets slices of a twentieth of it
-    slice_len = min(8_000_000, total_len // 20)
     zero_counts()
     res, fm = run_3gb.run(run_3gb.parse_args(
-        ["--len", str(total_len), "--slice-len", str(slice_len), "--out",
-         os.path.join(WORK, "3gb"), "--device", "cuda"]))
+        config5_args(total_len) + ["--out", os.path.join(WORK, "3gb")]))
     launches = launch_counts()
     say(f"[3gb] align: kernel launches {launches}")
-    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+    free = subprocess.run(["free", "-g"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout
+    say(f"[3gb] host memory, bytes a text row ({fm.seq_len} rows), the "
+        f"peak of each phase and what it left resident; free -g after the "
+        f"align:\n{free.rstrip()}")
+    memory_lines("", res)
+    build = max(ph["peak_so_far_bytes"] for ph in res["memory"]
+                if ph["phase"] not in ("save", "layout", "align"))
+    build_b = build / fm.seq_len
+    say(f"[3gb] the build's peak: {build_b:.3f} B/row ({build / 1e9:.1f} "
+        f"GB); the align's spans (s): {json.dumps(res['span_s'])}")
+    peak = res["peak_rss_gb"]
     say(f"[3gb] peak RSS {peak:.1f} GB; device tables "
         f"{res['device_table_gib']} GiB; seconds: build "
         f"{res['build_wall_s']} (SA-IS {res['sa_wall_s']}), save "
@@ -2008,12 +2075,18 @@ def phase_3gb(total_len: int):
         say(f"[3gb] resolve_sa: {int((k >= 2 ** 32).sum())} of "
             f"{k.numel()} ranks >= 2^32 (largest {int(k.max())}); "
             f"{rs['ms']:.4f} ms against plain {rs['plain_ms']:.1f} ms")
-    if dfm.wide and words <= 2 ** 32:
+    if dfm.wide and words > 2 ** 32:
+        occ_rows_check(dfm, FIRST_ROW_PAST_2_32, "index's own",
+                       dfm.seq_len + 1)
+    elif dfm.wide:
         rows_past_2_32(dfm)
     want = ("seed_scan",) + (() if dfm.direct_ok else ("resolve_sa",))
     missing = [k for k in want if launches[k] <= 0]
     if missing:
         raise AssertionError(f"3gb: {missing} never ran in the align")
+    if fm.seq_len >= 2 ** 31 and build_b > BUILD_B_PER_ROW:
+        raise AssertionError(f"3gb: the build's peak {build_b:.3f} bytes a "
+                             f"text row exceeds {BUILD_B_PER_ROW}")
     if total_len == CONFIG5_LEN:
         got = {k: res[k] for k in JAX_3GB}
         if got != JAX_3GB:
@@ -2030,6 +2103,58 @@ def phase_3gb(total_len: int):
         say(f"[3gb] {total_len} bases (no JAX record at this length): 3 "
             f"alignments over every query base, ANI {res['ani_pct']}, "
             f"max text position {res['max_text_rpos']}")
+
+
+def phase_3gb_processes(total_len: int) -> None:
+    """phase_3gb in a process of its own (`chip_smoke.py 3gb-build LEN`);
+    once it has exited (and its memory with it), the restore as the JAX
+    tool's record did it: `python -m gsalign_tpu_torch.tools.run_3gb
+    --index` in a second process loads the saved index, lays it out on the
+    card and aligns; its counts and its out.maf and out.vcf bytes must
+    equal the build run's. The earlier artifacts are cleared first: the
+    index alone is about 7 bytes a text row of disk."""
+    shutil.rmtree(WORK, ignore_errors=True)
+    out = os.path.join(WORK, "3gb")
+    t0 = time.time()
+    subprocess.run([sys.executable, os.path.abspath(__file__), "3gb-build",
+                    str(total_len)], check=True, cwd=REPO)
+    say(f"[3gb] the build process exited 0 after {time.time() - t0:.1f} s")
+    with open(os.path.join(out, "result.json")) as fh:
+        built = json.load(fh)
+    files = {k: read(os.path.join(out, f"out.{k}")) for k in ("maf", "vcf")}
+    idx_bytes = sum(os.path.getsize(os.path.join(out, f))
+                    for f in os.listdir(out) if f.startswith("idx"))
+    # the same --out, so that the VCF's ##reference line (the output
+    # prefix) is the same too: the build's files are held in memory above
+    for k in ("maf", "vcf"):
+        os.unlink(os.path.join(out, f"out.{k}"))
+    t0 = time.time()
+    subprocess.run([sys.executable, "-m", "gsalign_tpu_torch.tools.run_3gb"]
+                   + config5_args(total_len)
+                   + ["--index", os.path.join(out, "idx"), "--out", out],
+                   check=True, cwd=REPO)
+    wall = time.time() - t0
+    with open(os.path.join(out, "result.json")) as fh:
+        again = json.load(fh)
+    keys = list(JAX_3GB) + ["query_bp"]
+    got = {k: again[k] for k in keys}
+    want = {k: built[k] for k in keys}
+    say(f"[3gb] restore (run_3gb --index, a second process): {wall:.1f} s; "
+        f"index {idx_bytes} bytes on disk, loaded in "
+        f"{again['load_wall_s']} s, laid out in {again['table_layout_s']} "
+        f"s, aligned in {again['align_wall_s']} s, peak RSS "
+        f"{again['peak_rss_gb']} GB; counts {json.dumps(got)}")
+    memory_lines("restore ", again)
+    if got != want:
+        raise AssertionError(f"3gb restore: {got} differs from the build "
+                             f"run's {want}")
+    for k, data in files.items():
+        if read(os.path.join(out, f"out.{k}")) != data:
+            raise AssertionError(f"3gb restore: out.{k} differs from the "
+                                 f"build run's")
+    say(f"[3gb] the restored index gives the build run's counts and the "
+        f"same out.maf ({len(files['maf'])} bytes) and out.vcf "
+        f"({len(files['vcf'])} bytes)")
 
 
 def phase_sweep():
@@ -2122,14 +2247,19 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["3gb"] and len(sys.argv) <= 3:
         # BASELINE.json config 5 (or a shorter genome, LEN bases): about
-        # 18 bytes of host memory a text row (PERF.md) and most of an hour
-        # at full scale. No result lines.
+        # 12.5 bytes of host memory a text row (PERF.md) and most of an
+        # hour at full scale. No result lines.
         try:
             phase_card()
-            phase_3gb(int(sys.argv[2]) if len(sys.argv) == 3
-                      else CONFIG5_LEN)
+            phase_3gb_processes(int(sys.argv[2]) if len(sys.argv) == 3
+                                else CONFIG5_LEN)
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
+        return 0
+    if sys.argv[1:2] == ["3gb-build"] and len(sys.argv) == 3:
+        # phase_3gb alone, in the process phase_3gb_processes starts; it
+        # leaves its index and outputs in _smoke/3gb for the restore
+        phase_3gb(int(sys.argv[2]))
         return 0
     if sys.argv[1:] == ["tools"]:
         # the tools phase alone (about a minute). No result lines.

@@ -18,7 +18,7 @@ occ queries, src/BWT_Index/bwt.c:101-123 SA sampling):
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 
@@ -92,7 +92,9 @@ def build_fmindex(genome: Genome, sa_intv: Optional[int] = None,
                   prefer_device: bool = True,
                   sa_full: Optional[np.ndarray] = None,
                   force_wide: bool = False,
-                  threads: Optional[int] = None) -> FMIndex:
+                  threads: Optional[int] = None,
+                  on_phase: Optional[Callable[[str], None]] = None
+                  ) -> FMIndex:
     """Build the FM-index over the genome's fwd+RC text.
 
     sa_intv None picks automatically: the FULL suffix array (interval 1 —
@@ -107,29 +109,50 @@ def build_fmindex(genome: Genome, sa_intv: Optional[int] = None,
     ops/rank.DeviceFMIndex). force_wide builds that layout for small
     genomes too (test path). prefer_device lets the suffix array fall back
     to the torch build on the CUDA card where the native SA-IS library
-    cannot be built (index/suffix_array.build_suffix_array)."""
+    cannot be built (index/suffix_array.build_suffix_array).
+
+    Host memory, in bytes a text row (the text is 1, the genome's forward
+    codes 0.5): SA-IS holds the SA (8 for an int64 SA) and one byte of
+    types; then everything that needs the SA (the t3 exception rows and
+    among them the primary row, sa_samples, the C64 block starts, the
+    order-3 symbols and the BWT) is taken before the SA is dropped, so the peak
+    there is SA + sa_samples + t3 + BWT codes; the checkpoint tables come
+    after. on_phase(name) is called at "sa-in", "sa", "gather", "tables"
+    and "jump", as each part ends (a memory probe's hook)."""
+    mark = on_phase or (lambda name: None)
     text = genome.codes_fwd_rc()
     n = int(text.shape[0])
     wide = force_wide or n >= (1 << 31)
     if sa_intv is None:
         sa_intv = 1 if (n <= 640_000_000 and not wide) else 8
     assert sa_intv & (sa_intv - 1) == 0, "sa_intv must be a power of two"
+    cp_dtype = np.int64 if wide else np.int32
+    mark("sa-in")
     if sa_full is None:
-        sa_full = build_suffix_array(text, prefer_device=prefer_device)
+        sa_full = build_suffix_array(text, prefer_device=prefer_device,
+                                     wide=wide)
     assert sa_full.shape[0] == n + 1 and sa_full[0] == n
+    mark("sa")
 
-    primary = int(np.nonzero(sa_full == 0)[0][0])
-    # ONE random gather serves BWT extraction, the order-3 BWT, and the C64
-    # keys: pack (text[i-3..i-1], text[i..i+2]) per position into 15 bits of
-    # a uint16 — prev chars are always 0..3 (2-bit fields, laid out so the
-    # order-3 symbol is a single shift+mask), cur/next may be 4 = $ (3-bit
-    # fields). Out-of-range -> 0 on the left, 4 on the right. The native
-    # path fuses context build + gather + symbol extraction in one
-    # multithreaded pass (native/buildtools.cpp ctx_gather_extract).
+    t3_exc_pos, t3_exc_chr, exc_rows = _t3_exceptions(
+        sa_full, text, n, cp_dtype)
+    # the row holding text position 0 is one of the exception rows
+    primary = int(exc_rows[sa_full[exc_rows] == 0][0])
+    sa_samples = sa_full[::sa_intv].astype(cp_dtype)
+    c64 = _c64_starts(sa_full, text, n)
+    # ONE random gather serves BWT extraction and the order-3 BWT: the
+    # context (text[i-3..i-1], text[i..i+2]) of each SA row packed into 15
+    # bits of a uint16 — prev chars are always 0..3 (2-bit fields, laid out
+    # so the order-3 symbol is a single shift+mask), cur/next may be 4 = $
+    # (3-bit fields). Out-of-range -> 0 on the left, 4 on the right. The
+    # native path fuses context build + gather + symbol extraction in one
+    # multithreaded pass and keeps no context array
+    # (native/buildtools.cpp ctx_gather_extract).
     from gsalign_tpu_torch import native_lib
-    fused = native_lib.ctx_gather_extract(text, sa_full, primary, threads)
+    fused = native_lib.ctx_gather_extract(text, sa_full, primary, threads,
+                                          with_ctx=False)
     if fused is not None:
-        g_ctx, t3, bcodes = fused
+        t3, bcodes = fused
     else:
         ctx = np.zeros(n + 1, dtype=np.uint16)
         t16 = text.astype(np.uint16)
@@ -143,14 +166,21 @@ def build_fmindex(genome: Genome, sa_intv: Optional[int] = None,
         ctx[:n - 2] |= t16[2:]           # nxt2
         ctx[n - 2:] |= np.uint16(4)
         g_ctx = ctx[sa_full]             # [n+1] — the only big gather
+        del ctx, t16
         # order-3 symbol per row: bits 9..14 == prev3*16 + prev2*4 + prev1
         t3 = (g_ctx >> 9).astype(np.uint8)
         t3 &= 0x3F
+        del g_ctx
         bcodes = (t3 & 3)[sa_full > 0]   # $-removed BWT (prev1 field)
+    mark("gather")
+    # this function's reference to the SA goes before anything else is
+    # allocated (the array frees when the SA was built in here; a
+    # caller-supplied sa_full stays alive on the caller's reference)
+    sa_full = None
+    t3[exc_rows] = 0
 
     # chunked: np.bincount internally casts its input to intp, an 8n-byte
-    # transient (~50 GB at the 3 Gb config, measured at the edge of OOM
-    # while the SA is still resident)
+    # transient
     counts = np.zeros(4, dtype=np.int64)
     for s in range(0, n, 1 << 28):
         counts += np.bincount(text[s:s + (1 << 28)], minlength=4)[:4]
@@ -167,10 +197,8 @@ def build_fmindex(genome: Genome, sa_intv: Optional[int] = None,
         per_block = np.empty((n_blocks, 4), dtype=np.int64)
         for c in range(4):               # bool temp per char beats 8B ids
             per_block[:, c] = np.count_nonzero(blk2d == c, axis=1)
-    occ_cp = np.zeros((n_blocks, 4), dtype=np.int64)
-    occ_cp[1:] = np.cumsum(per_block[:n_blocks], axis=0)[:-1]
-    cp_dtype = np.int64 if wide else np.int32
-    occ_cp = occ_cp.astype(cp_dtype)
+    occ_cp = np.zeros((n_blocks, 4), dtype=cp_dtype)
+    np.cumsum(per_block[:n_blocks - 1], axis=0, out=occ_cp[1:])
 
     bwt_packed = pack_bwt_codes(bcodes)
     # pad packed words to whole blocks so rank gathers are unconditional
@@ -180,26 +208,16 @@ def build_fmindex(genome: Genome, sa_intv: Optional[int] = None,
             [bwt_packed, np.zeros(want - bwt_packed.shape[0], dtype=np.uint32)])
     del bcodes, per_block                # n bytes freed before the t3 build
 
-    sa_dtype = np.int64 if wide else np.int32
-    sa_samples = sa_full[::sa_intv].astype(sa_dtype)
-
-    # the t3 build needs sa_full only for its 3 exception rows — at the
-    # 3 Gb config the SA is ~50 GB, so compute those first and DROP this
-    # function's reference before the t3 tables allocate (the array
-    # actually frees when the SA was built in here; a caller-supplied
-    # sa_full stays alive on the caller's reference)
-    t3_exc_pos, t3_exc_chr, exc_rows = _t3_exceptions(
-        sa_full, text, n, cp_dtype)
-    sa_full = None
-    t3[exc_rows] = 0
-    t3_packed, t3_cp, c64 = _build_t3_index(g_ctx, t3, n, cp_dtype, threads)
-    del g_ctx, t3                        # 3n bytes freed before c8/c12
+    t3_packed, t3_cp = _build_t3_index(t3, n, cp_dtype, threads)
+    del t3                               # n bytes freed before c8/c12
+    mark("tables")
     c8 = _build_c8(text, n, threads)
     # The order-12 jump table only serves the INIT-12 device path, which
     # activates above INIT12_MIN_SEQLEN (ops/rank.py); below it the 268 MB
     # table (and its multi-MB sparse persistence) is pure build overhead —
     # the INIT-10 starts derive from a direct 4^10 histogram instead.
     c12 = _build_c12(text, n, threads) if n > INIT12_MIN_SEQLEN else None
+    mark("jump")
 
     return FMIndex(
         seq_len=n, primary=primary, l2=l2, bwt_packed=bwt_packed,
@@ -314,44 +332,26 @@ def _t3_exceptions(sa_full: np.ndarray, text: np.ndarray, n: int,
     return t3_exc_pos, t3_exc_chr, small
 
 
-def _build_t3_index(g_ctx: np.ndarray, t3: np.ndarray, n: int,
-                    cp_dtype=np.int32, threads: Optional[int] = None):
-    """Order-3 (alphabet-64) BWT over all SA_full rows: T3[i] = the three
-    bases preceding suffix SA[i] as T[SA-3]*16 + T[SA-2]*4 + T[SA-1]. Rows
-    with SA < 3 lack a full 3-base left context: stored as 0 and corrected
-    at query time (class-0 subtraction for triple ranks; the true single
-    preceding char, kept in t3_exc_chr, re-added for single-char ranks) —
-    see _t3_exceptions, computed by the caller so the full SA can be freed
-    before these tables allocate. One backward step with a triple symbol
-    consumes three query bases — a third of the rank queries of the
-    seeding scan vs single-char stepping.
-
-    g_ctx is the pre-gathered packed context per SA row and t3 the order-3
-    symbol array already extracted from it (see build_fmindex).
-    """
+def _c64_starts(sa_full: np.ndarray, text: np.ndarray, n: int) -> np.ndarray:
+    """C64[c]: rows sorting strictly below the suffix block whose first
+    three chars are c (c = c0*16 + c1*4 + c2). The key coarsens suffix
+    order to 3-char granularity with each char mapped to c+1 and a missing
+    char (past the text's end: the $ row or a short suffix) to 0 — $ sorts
+    below every real char, so key order matches suffix order and each block
+    start is a bisection over the SA rows: 64 * log2(rows) reads of the SA
+    and the text, no rows-sized array."""
     rows = n + 1
-    # C64[c]: rows sorting strictly below the suffix block whose first three
-    # chars are c. The key coarsens suffix order to 3-char granularity with
-    # each char mapped to c+1 and a missing char (field == 4: the $ row or a
-    # short suffix) to 0 — $ sorts below every real char, so key order
-    # matches suffix order and a searchsorted per class recovers the block
-    # starts. The low 9 ctx bits are (cur<<6 | nxt1<<3 | nxt2), so one
-    # 512-entry LUT turns the whole key computation into a single gather.
-    lut_f = np.arange(512) >> np.array([[6], [3], [0]])  # [3, 512] fields
-    lut_f &= 7
-    key_lut = (np.where(lut_f == 4, 0, lut_f + 1)
-               * np.array([[25], [5], [1]])).sum(0).astype(np.uint8)
     cls = np.arange(64)
     qkeys = ((cls >> 4) + 1) * 25 + (((cls >> 2) & 3) + 1) * 5 + (cls & 3) + 1
-    # the key sequence key_lut[g_ctx[i] & 0x1FF] is nondecreasing in i
-    # (it coarsens suffix order), so each block start is a direct
-    # bisection over g_ctx — 64 * log2(rows) scalar reads instead of
-    # materializing a rows-sized key array (big-temp page faults
-    # dominated the 100 Mb build)
     c64 = np.empty(65, dtype=np.int64)
 
     def key_at(i):
-        return int(key_lut[int(g_ctx[i]) & 0x1FF])
+        p = int(sa_full[i])
+        key = 0
+        for j, w in ((0, 25), (1, 5), (2, 1)):
+            if p + j < n:
+                key += (int(text[p + j]) + 1) * w
+        return key
 
     for ci in range(64):
         qk = int(qkeys[ci])
@@ -364,7 +364,26 @@ def _build_t3_index(g_ctx: np.ndarray, t3: np.ndarray, n: int,
                 hi = mid
         c64[ci] = lo
     c64[64] = rows
+    return c64
 
+
+def _build_t3_index(t3: np.ndarray, n: int, cp_dtype=np.int32,
+                    threads: Optional[int] = None):
+    """Order-3 (alphabet-64) BWT over all SA_full rows: T3[i] = the three
+    bases preceding suffix SA[i] as T[SA-3]*16 + T[SA-2]*4 + T[SA-1]. Rows
+    with SA < 3 lack a full 3-base left context: stored as 0 and corrected
+    at query time (class-0 subtraction for triple ranks; the true single
+    preceding char, kept in t3_exc_chr, re-added for single-char ranks) —
+    see _t3_exceptions, computed by the caller so the full SA can be freed
+    before these tables allocate. One backward step with a triple symbol
+    consumes three query bases — a third of the rank queries of the
+    seeding scan vs single-char stepping.
+
+    t3 is the order-3 symbol array gathered by the caller (see
+    build_fmindex); returns (t3_packed, t3_cp). The C64 block starts come
+    from _c64_starts.
+    """
+    rows = n + 1
     # per-block class checkpoints + 8-bit packed symbols (MSB-first in word)
     # -- built slab-wise: a single flat (block*64 + sym) id array is 8 bytes
     # per row, which at >2^31 rows dominated the build's memory footprint
@@ -378,16 +397,17 @@ def _build_t3_index(g_ctx: np.ndarray, t3: np.ndarray, n: int,
     # ~25 GB of transients at 6.2 G rows (the 3 Gb config) — so the count
     # pass streams fixed windows of rows into t3_cp instead (the fixed-
     # memory-budget arithmetic of the reference's index build,
-    # src/BWT_Index/bwt_gen.c:162-205, reborn); 2^28 rows -> <= 1 GB
-    # transient per window, identical totals (windows align to blocks)
-    CNT_WINDOW = 1 << 28
+    # src/BWT_Index/bwt_gen.c:162-205, reborn); at most 2^22 rows (32 MB)
+    # and a 32nd of the rows a window, so the transient stays under 0.125
+    # bytes a row at any size, identical totals (windows align to blocks)
+    CNT_WINDOW = 1 << max(16, min(22, (rows >> 5).bit_length() - 1))
     cnt_ok = native_lib.get_lib() is not None
     if cnt_ok:
         for s in range(0, rows, CNT_WINDOW):
             e = min(s + CNT_WINDOW, rows)
             cnt = native_lib.block_counts(t3[s:e], 64, threads)
             b0 = s >> 7
-            t3_cp[b0 + 1: b0 + 1 + cnt.shape[0]] = cnt.astype(cp_dtype)
+            t3_cp[b0 + 1: b0 + 1 + cnt.shape[0]] = cnt     # casts in place
     else:
         # small slabs keep each bincount's bin range (slab/128*64 ids)
         # inside L2 — the same bincount over one 2^27 slab is 36x slower
@@ -403,10 +423,20 @@ def _build_t3_index(g_ctx: np.ndarray, t3: np.ndarray, n: int,
             cnt = np.bincount(ids, minlength=nb * 64).reshape(nb, 64)
             # shifted: exclusive cumsum (cast: t3_cp may be int32)
             t3_cp[b0 + 1: b0 + 1 + nb] += cnt.astype(cp_dtype)
-    np.cumsum(t3_cp, axis=0, out=t3_cp)
+    # in place by slabs: a whole-array cumsum into its own input makes a
+    # copy of it first (4 bytes a row for int64 checkpoints)
+    carry = np.zeros(64, dtype=cp_dtype)
+    for s in range(0, t3_cp.shape[0], 1 << 16):
+        slab = t3_cp[s:s + (1 << 16)]
+        slab[0] += carry
+        np.cumsum(slab, axis=0, out=slab)
+        carry = slab[-1].copy()
     t3_cp = np.ascontiguousarray(t3_cp[:n3_blocks])
     padded = np.zeros(n3_blocks * T3_BLOCK, dtype=np.uint8)
     padded[:rows] = t3
-    # MSB-first 4x8-bit packing == a big-endian u32 view (no temporaries)
-    t3_packed = padded.view(">u4").astype("=u4")
-    return t3_packed, t3_cp, c64
+    # MSB-first 4x8-bit packing == the big-endian reading of each 4 bytes:
+    # swapped in place (no second copy of the symbols)
+    t3_packed = padded.view(">u4").view(np.uint32)
+    if np.little_endian:
+        t3_packed.byteswap(inplace=True)
+    return t3_packed, t3_cp

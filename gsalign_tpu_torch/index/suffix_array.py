@@ -1,6 +1,7 @@
-"""Suffix array construction: the native O(n) SA-IS (native/sais.cpp,
-through native_lib), prefix doubling in torch on a device, and prefix
-doubling in numpy, tried in that order (build_suffix_array).
+"""Suffix array construction: the native O(n) SA-IS (the package's
+native/sais.cpp, through native_lib), prefix doubling in torch on a
+device, and prefix doubling in numpy, tried in that order
+(build_suffix_array).
 
 Prefix doubling replaces the reference's incremental BWT-SW construction +
 Larsson-Sadakane sorter (src/BWT_Index/bwt_gen.c, src/BWT_Index/QSufSort.c):
@@ -104,24 +105,24 @@ def build_suffix_array_torch(codes: np.ndarray, device=None) -> np.ndarray:
     return order.cpu().numpy()
 
 
-def build_suffix_array_native(codes: np.ndarray):
-    """O(n) SA-IS via the native library (native/sais.cpp); None if the
-    library cannot be built (it needs g++)."""
+def build_suffix_array_native(codes: np.ndarray, wide: bool = False):
+    """O(n) SA-IS via the native library (native/sais.cpp), read straight
+    from `codes` (the +1 and the sentinel are the library's): the build
+    holds the SA, the codes and one byte of types a row. int32 below 2^31
+    rows, else int64; `wide` forces int64. None if the library cannot be
+    built (it needs g++)."""
     from gsalign_tpu_torch import native_lib
-    n = int(codes.shape[0])
-    t = np.empty(n + 1, dtype=np.uint8)
-    t[:n] = codes + 1
-    t[n] = 0
-    return native_lib.sais(t)
+    return native_lib.sais_codes(codes, wide=wide)
 
 
-def build_suffix_array(codes: np.ndarray,
-                       prefer_device: bool = True) -> np.ndarray:
-    """Preference order: native SA-IS (fastest, O(n), any size) -> torch
-    prefix doubling on the CUDA card (only with prefer_device, from 2^16
-    symbols on, below 2^31; an error without a card) -> numpy prefix
-    doubling."""
-    sa = build_suffix_array_native(codes)
+def build_suffix_array(codes: np.ndarray, prefer_device: bool = True,
+                       wide: bool = False) -> np.ndarray:
+    """Preference order: native SA-IS (fastest, O(n), any size; an int64
+    SA for a wide index, else int32 below 2^31 rows) -> torch prefix
+    doubling on the CUDA card (only with prefer_device, from 2^16 symbols
+    on, below 2^31; an error without a card) -> numpy prefix doubling."""
+    sa = (build_suffix_array_native(codes, wide=True) if wide
+          else build_suffix_array_native(codes))
     if sa is not None:
         return sa
     if prefer_device and codes.shape[0] >= (1 << 16):

@@ -1,11 +1,10 @@
 """Native (C++) kernel loading.
 
-Builds the repository's native/sais.cpp and native/buildtools.cpp into a
-shared library on first use (g++) and exposes it via ctypes. The library
-goes into this package's own build directory (_build/, git-ignored), never
-into native/: the JAX package compiles its copy there, possibly at the same
-time. Without a compiler get_lib() returns None: the suffix array build
-then raises, and the other helpers' callers take their numpy paths.
+Builds this package's own native/sais.cpp and native/buildtools.cpp into
+a shared library on first use (g++) and exposes it via ctypes. The library
+goes into the package's build directory (_build/, git-ignored). Without a
+compiler get_lib() returns None: the suffix array build then raises, and
+the other helpers' callers take their numpy paths.
 """
 
 from __future__ import annotations
@@ -19,8 +18,8 @@ from typing import Optional
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "native")
+_NATIVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "native")
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "_build")
 _LIB_PATH = os.path.join(_BUILD_DIR, "libgsalign_native.so")
@@ -62,18 +61,18 @@ def get_lib() -> Optional[ctypes.CDLL]:
         if not _build():
             return None
         lib = ctypes.CDLL(_LIB_PATH)
-        lib.sais_u8_i32_mt.restype = ctypes.c_int
-        lib.sais_u8_i32_mt.argtypes = [
-            np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS"),
-            ctypes.c_int32,
-            np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
-            ctypes.c_int]
-        lib.sais_u8_i64_mt.restype = ctypes.c_int
-        lib.sais_u8_i64_mt.argtypes = [
-            np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS"),
-            ctypes.c_int64,
-            np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
-            ctypes.c_int]
+        for bits, ct in ((32, ctypes.c_int32), (64, ctypes.c_int64)):
+            fn = getattr(lib, f"sais_codes_i{bits}_mt")
+            fn.restype = ctypes.c_int
+            fn.argtypes = [
+                np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS"), ct,
+                np.ctypeslib.ndpointer(np.dtype(f"int{bits}"),
+                                       flags="C_CONTIGUOUS"),
+                ctypes.c_int]
+        lib.sais_marks.restype = ctypes.c_int64
+        lib.sais_marks.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+        lib.sais_marks_clear.restype = None
+        lib.sais_marks_clear.argtypes = []
         lib.c8_counts.restype = None
         lib.c8_counts.argtypes = [
             np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS"),
@@ -96,7 +95,7 @@ def get_lib() -> Optional[ctypes.CDLL]:
         lib.ctx_gather_extract.argtypes = [
             np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS"),
             ctypes.c_int64, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
-            np.ctypeslib.ndpointer(np.uint16, flags="C_CONTIGUOUS"),
+            ctypes.c_void_p,
             np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS"),
             np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS"),
             ctypes.c_int]
@@ -157,31 +156,47 @@ def get_lib() -> Optional[ctypes.CDLL]:
         return _lib
 
 
-def sais(text_with_sentinel: np.ndarray,
-         threads: Optional[int] = None) -> Optional[np.ndarray]:
-    """Suffix array of a uint8 text whose last byte is the unique 0 sentinel.
+SAIS_PHASES = ("enter", "lms-placed", "induce1", "named", "mapped",
+               "final-place", "done")
 
-    Returns int64[n] or None if the native library is unavailable.
-    Threaded: every SA-IS phase except the loop-carried induction scans
-    parallelizes per block (see native/sais.cpp).
-    """
+
+def sais_codes(codes: np.ndarray, threads: Optional[int] = None,
+               wide: bool = False) -> Optional[np.ndarray]:
+    """Suffix array of codes + 1 followed by the 0 sentinel (codes below
+    127), built straight from `codes`: no copy of the text is made, so the
+    build holds the SA, the codes and one byte of types a row. Returns
+    len(codes) + 1 entries, int32 below 2^31 of them and int64 from there
+    on or with `wide`; None without the library. Threaded: every SA-IS
+    phase but the induction scans and the final placement runs per block
+    (see native/sais.cpp)."""
     lib = get_lib()
     if lib is None:
         return None
-    nt = threads or default_threads()
-    t = np.ascontiguousarray(text_with_sentinel, dtype=np.uint8)
-    n = int(t.shape[0])
-    if n < (1 << 31):
-        sa = np.empty(n, dtype=np.int32)
-        rc = lib.sais_u8_i32_mt(t, n, sa, nt)
-        if rc != 0:
-            raise RuntimeError(f"sais_u8_i32 failed: {rc}")
-        return sa
-    sa = np.empty(n, dtype=np.int64)
-    rc = lib.sais_u8_i64_mt(t, n, sa, nt)
+    c = np.ascontiguousarray(codes, dtype=np.uint8)
+    n = int(c.shape[0]) + 1
+    bits = 64 if wide or n >= (1 << 31) else 32
+    sa = np.empty(n, dtype=np.int32 if bits == 32 else np.int64)
+    lib.sais_marks_clear()
+    rc = getattr(lib, f"sais_codes_i{bits}_mt")(
+        c, c.shape[0], sa, threads or default_threads())
     if rc != 0:
-        raise RuntimeError(f"sais_u8_i64 failed: {rc}")
+        raise RuntimeError(f"sais_codes_i{bits} failed: {rc}")
     return sa
+
+
+def sais_marks() -> list:
+    """The memory milestones of the last SA-IS build: [{"phase", "depth",
+    "n", "peak_rss", "rss"}], bytes of this process, in the order the
+    levels reached them (native/sais.cpp mark)."""
+    lib = get_lib()
+    if lib is None:
+        return []
+    m = int(lib.sais_marks(None, 0))
+    out = np.zeros((max(m, 1), 5), dtype=np.int64)
+    m = min(m, int(lib.sais_marks(out.ctypes.data, m)))
+    return [{"phase": SAIS_PHASES[int(r[0])], "depth": int(r[1]),
+             "n": int(r[2]), "peak_rss": int(r[3]), "rss": int(r[4])}
+            for r in out[:m]]
 
 
 def default_threads() -> int:
@@ -216,10 +231,11 @@ def c12_counts(text: np.ndarray,
 
 
 def ctx_gather_extract(text: np.ndarray, sa: np.ndarray, primary: int,
-                       threads: Optional[int] = None):
+                       threads: Optional[int] = None, with_ctx: bool = True):
     """Fused context build + SA gather + symbol extraction (one parallel
     pass over the suffix array). Returns (g_ctx u16[n+1], t3 u8[n+1],
-    bcodes u8[n]) or None if the lib is unavailable."""
+    bcodes u8[n]), or with with_ctx=False (t3, bcodes) and no g_ctx array;
+    None if the lib is unavailable."""
     lib = get_lib()
     if lib is None:
         return None
@@ -227,12 +243,13 @@ def ctx_gather_extract(text: np.ndarray, sa: np.ndarray, primary: int,
     n = int(t.shape[0])
     sa = np.ascontiguousarray(sa)
     is64 = 1 if sa.dtype == np.int64 else 0
-    g_ctx = np.empty(n + 1, dtype=np.uint16)
+    g_ctx = np.empty(n + 1, dtype=np.uint16) if with_ctx else None
     t3 = np.empty(n + 1, dtype=np.uint8)
     bcodes = np.empty(n, dtype=np.uint8)
-    lib.ctx_gather_extract(t, n, sa.ctypes.data, is64, primary, g_ctx, t3,
+    lib.ctx_gather_extract(t, n, sa.ctypes.data, is64, primary,
+                           None if g_ctx is None else g_ctx.ctypes.data, t3,
                            bcodes, threads or default_threads())
-    return g_ctx, t3, bcodes
+    return (g_ctx, t3, bcodes) if with_ctx else (t3, bcodes)
 
 
 def pack_2bit(codes: np.ndarray,

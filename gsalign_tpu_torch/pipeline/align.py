@@ -33,7 +33,7 @@ from gsalign_tpu_torch.pipeline.output import (write_aln, write_dotplot,
 from gsalign_tpu_torch.pipeline.variants import (VariantCollector,
                                                  identify_variants, write_vcf)
 from gsalign_tpu_torch.utils.device import resolve_device
-from gsalign_tpu_torch.utils.trace import StageTimer, device_trace
+from gsalign_tpu_torch.utils.trace import Laps, StageTimer, device_trace
 
 
 @dataclasses.dataclass
@@ -43,6 +43,9 @@ class RunStats:
     total_alignment_matches: int = 0
     dup_aln_num: int = 0
     stage_times: dict = dataclasses.field(default_factory=dict)
+    # compare_genomes' timeline in consecutive spans (utils/trace.Laps),
+    # the time outside the stages included
+    span_times: dict = dataclasses.field(default_factory=dict)
     seed_scan_iterations: list = dataclasses.field(default_factory=list)
     seed_scan_launches: list = dataclasses.field(default_factory=list)
 
@@ -138,12 +141,18 @@ def compare_genomes(fm: FMIndex,
                              f"entry {first}")
         device = first
     device = resolve_device(device)
+    # the run's timeline in spans (RunStats.span_times), the time outside
+    # the stages included; each lap names the work since the one before
+    laps = Laps()
     genome = fm.genome
     chr_index = ChrLocIndex(genome)
+    laps.lap("setup")
     ref_chars = genome.chars_fwd_rc()
+    laps.lap("chars_fwd_rc")
     dfm = DeviceFMIndex.from_host(fm, device)
     if shard_index_rows and mesh is not None:
         dfm = mesh_lib.shard_index_rows(dfm, mesh)
+    laps.lap("from_host")
     stats = RunStats()
     timer = StageTimer()
     collector = VariantCollector()
@@ -172,6 +181,7 @@ def compare_genomes(fm: FMIndex,
         want = [int(s * 1.08) for s in sizes[:n_flight] for _ in (0, 1)]
         threading.Thread(target=bufpool.prime, args=(want,),
                          daemon=True).start()
+    laps.lap("query_codes")
     seed_stats: dict = {}
     with device_trace(), timer.stage("seed"):
         all_seeds = find_seeds_all(
@@ -185,6 +195,7 @@ def compare_genomes(fm: FMIndex,
     stats.seed_scan_launches = seed_stats["scan_launches"]
     log(f"\t[seed] {seed_stats['scan_lanes']} lanes, scan iterations per "
         f"round: {seed_stats['scan_iterations']}", verbose)
+    laps.lap("seed")
 
     # Pass 1 (host): chain stages + DP-pair planning per chromosome. DP
     # fragments stream into an incremental aligner: full buckets DISPATCH
@@ -256,10 +267,12 @@ def compare_genomes(fm: FMIndex,
             planned.append((qname, qry_chars, qcodes_list[qc_idx], blocks,
                             jobs, lo, lo + len(rf)))
 
+    laps.lap("pass1")
     # S9b: launch leftover partial buckets, ONE copy for every
     # chromosome's gap fragments
     with device_trace(), timer.stage("align"):
         ops_all = aligner.finish()
+    laps.lap("dp_finish")
 
     # Pass 2 (host): expand alignments, filter, emit — chromosome order.
     # The heavy per-chromosome work (alignment expansion, MAF row
@@ -326,6 +339,7 @@ def compare_genomes(fm: FMIndex,
         pool.shutdown()
     else:
         outcomes = map(pass2_work, planned)
+    laps.lap("pass2")     # one thread: the work runs lazily inside "emit"
 
     first_out = True
     for (qname, qry_chars, qry_codes, blocks, n, aln_len_sum,
@@ -368,6 +382,7 @@ def compare_genomes(fm: FMIndex,
         results.append(ChromosomeResult(qname, blocks, n, aln_len_sum,
                                         aln_score_sum))
 
+    laps.lap("emit")
     # VCF formatting runs WHILE the sink thread drains the residual MAF
     # disk writes (independent files) — the close() join then returns
     # almost immediately instead of serializing ~0.7 s + ~0.9 s tails.
@@ -385,7 +400,9 @@ def compare_genomes(fm: FMIndex,
             f"(total alignment length={stats.total_alignment_length}) "
             f"ANI={stats.ani:.2f}%, unique alignment#="
             f"{stats.local_alignment_num - stats.dup_aln_num}", verbose)
+    laps.lap("vcf_close")
     stats.stage_times = dict(timer.totals)
+    stats.span_times = dict(laps.spans)
     log(f"\t[stages] {timer.report()}", verbose)
     log(f"\tIt took {int(time.time() - t0)} seconds for genome sequence "
         f"alignment.", verbose)

@@ -25,11 +25,14 @@ index's t3 and sa_samples rows are cut over a mesh of N entries of the one
 device (compare_genomes(mesh=, shard_index_rows=True)).
 
 Writes {out}/result.json, the JAX tool's keys with the same meanings plus
-device, table_layout_s, device_table_gib and the stage seconds (seed_s,
-chain_s, align_s, output_s, variants_s), and {out}/out.maf, {out}/out.vcf.
-The build's peak is SA-IS's: about 18 bytes of host memory a text row
-(79.6 GB at 4.4 G rows beside an NVIDIA H100 80GB HBM3, 700 W; PERF.md),
-about 112 GB at the full 6.2 G rows.
+device, table_layout_s, device_table_gib, the stage seconds (seed_s,
+chain_s, align_s, output_s, variants_s), the align's spans (span_s:
+compare_genomes' timeline, the time outside the stages included) and the
+host memory phase by phase (memory: peak and current resident bytes and
+their bytes a text row, SA-IS's levels included), and {out}/out.maf,
+{out}/out.vcf. The build needs about 12.5 bytes of host memory a text row
+at its peak (the suffix array, the text and what is taken from them in
+one pass; PERF.md), about 78 GB at the full 6.2 G rows.
 """
 
 from __future__ import annotations
@@ -38,19 +41,15 @@ import argparse
 import gc
 import json
 import os
-import resource
 import subprocess
 import tempfile
 import time
 import numpy as np
 
+from gsalign_tpu_torch.utils import trace
+
 DNA = np.frombuffer(b"ACGT", dtype=np.uint8)
 STAGES = ("seed", "chain", "align", "output", "variants")
-
-
-def rss_gb() -> float:
-    """Peak resident set of this process so far, in GB."""
-    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
 
 
 def say(msg: str) -> None:
@@ -96,30 +95,77 @@ def make_queries(genome, slice_len: int) -> list:
     ]
 
 
-def build_index(genome, result: dict):
+class Memory:
+    """The host memory of the run, phase by phase (utils/trace.PhasePeaks):
+    mark(name) records, in bytes and in bytes a text row, the peak of the
+    phase that ends there, the resident set at its end, and the process's
+    peak so far. After the "sa" phase come SA-IS's levels, from its own
+    milestones (native_lib.sais_marks): the largest resident set at a
+    level's milestones and the peak so far at its last."""
+
+    def __init__(self, rows: int):
+        self.rows = rows
+        self.peaks = trace.PhasePeaks()
+        self.phases = []
+
+    def add(self, name: str, peak: int, rss: int, so_far: int) -> None:
+        self.phases.append({
+            "phase": name, "peak_bytes": peak, "rss_bytes": rss,
+            "peak_so_far_bytes": so_far,
+            "peak_b_per_row": round(peak / self.rows, 3),
+            "rss_b_per_row": round(rss / self.rows, 3),
+            "peak_so_far_b_per_row": round(so_far / self.rows, 3)})
+
+    def mark(self, name: str) -> None:
+        first = len(self.phases)
+        m = self.peaks.mark(name)
+        self.add(name, m["peak_rss"], m["rss"], m["peak_so_far"])
+        if name == "sa":
+            from gsalign_tpu_torch import native_lib
+            levels = {}
+            for k in native_lib.sais_marks():
+                lv = levels.setdefault(k["depth"], [0, 0, 0, k["n"]])
+                lv[0] = max(lv[0], k["rss"])
+                lv[1] = k["rss"]
+                lv[2] = max(lv[2], k["peak_rss"])
+            for d, (peak, rss, so_far, n) in sorted(levels.items()):
+                self.add(f"sais-depth{d} (n={n})", peak, rss, so_far)
+        for p in self.phases[first:]:
+            say(f"memory {p['phase']}: peak {p['peak_b_per_row']} B/row "
+                f"({p['peak_bytes'] / 1e9:.1f} GB), now "
+                f"{p['rss_b_per_row']} B/row, peak so far "
+                f"{p['peak_so_far_b_per_row']} B/row")
+
+    def peak_gb(self) -> float:
+        """The largest peak so far, of the phases marked and the one now
+        running, in GB."""
+        return round(self.peaks.peak / 1e9, 1)
+
+
+def build_index(genome, result: dict, mem: Memory):
     """build_fmindex(prefer_device=False) with the suffix array timed
-    inside it: a reference to the suffix array held here would keep the
-    build from freeing it before the t3 tables are made."""
+    inside it (a reference to the suffix array held here would keep the
+    build from freeing it before the t3 tables are made), and the memory
+    of each of its phases in mem."""
     from gsalign_tpu_torch.index import fmindex as fmindex_mod
     orig = fmindex_mod.build_suffix_array
 
-    def timed_sa(codes, prefer_device=True):
+    def timed_sa(codes, prefer_device=True, wide=False):
         t = time.time()
-        sa = orig(codes, prefer_device=False)
+        sa = orig(codes, prefer_device=False, wide=wide)
         result["sa_wall_s"] = round(time.time() - t, 1)
-        result["sa_rss_gb"] = round(rss_gb(), 1)
-        say(f"SA-IS over {len(codes)} rows: {result['sa_wall_s']} s (peak "
-            f"RSS {result['sa_rss_gb']} GB)")
+        say(f"SA-IS over {len(codes)} rows: {result['sa_wall_s']} s")
         return sa
 
     fmindex_mod.build_suffix_array = timed_sa
     t0 = time.time()
     try:
-        fm = fmindex_mod.build_fmindex(genome, prefer_device=False)
+        fm = fmindex_mod.build_fmindex(genome, prefer_device=False,
+                                       on_phase=mem.mark)
     finally:
         fmindex_mod.build_suffix_array = orig
     result["build_wall_s"] = round(time.time() - t0, 1)
-    result["build_rss_gb"] = round(rss_gb(), 1)
+    result["build_rss_gb"] = mem.peak_gb()
     return fm
 
 
@@ -134,7 +180,7 @@ def card_name(device) -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
-def lay_out_tables(fm, device, result: dict) -> None:
+def lay_out_tables(fm, device, result: dict, mem: Memory) -> None:
     """The device tables (kept on fm for compare_genomes), their layout
     seconds and bytes; then the host planes they were made from are freed.
     Nothing the port keeps refers to those planes afterwards: the table
@@ -150,12 +196,12 @@ def lay_out_tables(fm, device, result: dict) -> None:
     n_bytes = sum(v.numel() * v.element_size() for v in vars(dfm).values()
                   if isinstance(v, torch.Tensor))
     result["device_table_gib"] = round(n_bytes / 2 ** 30, 2)
+    mem.mark("layout")
     fm.t3_cp = fm.t3_packed = fm.occ_cp = fm.bwt_packed = None
     fm.sa_samples = fm.c8 = fm.c12 = None
     gc.collect()
     say(f"tables on {device} in {result['table_layout_s']} s: "
-        f"{result['device_table_gib']} GiB; host rank planes freed (peak "
-        f"RSS {rss_gb():.1f} GB)")
+        f"{result['device_table_gib']} GiB; host rank planes freed")
 
 
 def run(args):
@@ -174,11 +220,13 @@ def run(args):
     os.makedirs(args.out, exist_ok=True)
     result = {"total_len": args.total_len, "device": card_name(device)}
     l1 = args.total_len * 3 // 5
+    mem = Memory(2 * args.total_len)
     if args.index:
         t0 = time.time()
         fm = load_index(args.index)
         result["index"] = args.index
         result["load_wall_s"] = round(time.time() - t0, 1)
+        mem.mark("load")
         g = fm.genome
         if g.names != ["big1", "big2"] or g.lengths.tolist() != [
                 l1, args.total_len - l1]:
@@ -189,7 +237,7 @@ def run(args):
         say(f"generating {args.total_len} bp over 2 chromosomes "
             f"({l1} + {args.total_len - l1})")
         g = make_genome(args.total_len)
-        fm = build_index(g, result)
+        fm = build_index(g, result, mem)
     result["wide"] = bool(fm.rank_dtype == np.int64)
     result["sa_intv"] = int(fm.sa_intv)
     if fm.seq_len != 2 * args.total_len:
@@ -205,10 +253,14 @@ def run(args):
         t0 = time.time()
         save_index(fm, os.path.join(args.out, "idx"))
         result["save_wall_s"] = round(time.time() - t0, 1)
+        mem.mark("save")
         say(f"index saved to {args.out}/idx ({result['save_wall_s']} s)")
     records = make_queries(g, args.slice_len)
 
-    lay_out_tables(fm, device, result)
+    lay_out_tables(fm, device, result, mem)
+    # the build's and the layout's peaks are read; a sampling thread
+    # would take the interpreter lock during the timed align
+    mem.peaks.stop()
     mesh = make_mesh([device] * entries) if entries > 1 else None
     result["mesh_devices"] = entries
     t0 = time.time()
@@ -218,6 +270,7 @@ def run(args):
         shard_index_rows=mesh is not None)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+    mem.mark("align")
     result.update({
         "align_wall_s": round(time.time() - t0, 1),
         "query_bp": 3 * args.slice_len,
@@ -226,8 +279,9 @@ def run(args):
         "aligned_bp": stats.total_alignment_length,
         "snv": collector.n_snv, "ins": collector.n_ins,
         "dele": collector.n_del,
-        "peak_rss_gb": round(rss_gb(), 1),
+        "peak_rss_gb": mem.peak_gb(),
     })
+    result["span_s"] = {k: round(v, 3) for k, v in stats.span_times.items()}
     for k in STAGES:
         result[f"{k}_s"] = round(stats.stage_times.get(k, 0.0), 3)
     # int64-coordinate evidence: the end of the last pair of a block on
@@ -239,6 +293,8 @@ def run(args):
                 max_rpos = max(max_rpos, int(blk.r_pos[-1] + blk.r_len[-1]))
     result["max_text_rpos"] = max_rpos
     result["int64_coords_seen"] = bool(max_rpos >= (1 << 31))
+    result["memory"] = mem.phases
+    result["memory_resets"] = mem.peaks.resets
     with open(os.path.join(args.out, "result.json"), "w") as fh:
         json.dump(result, fh, indent=1)
     say(json.dumps(result))

@@ -8,6 +8,9 @@ seconds (src/GSAlign.cpp:482-550, src/main.cpp:301). Here:
   without re-instrumenting. Stage names match the JAX package's.
 - ``device_trace`` wraps ``torch.profiler`` so a run can be captured as a
   Chrome trace with GSALIGN_TRACE=<dir> or the context manager.
+- ``Laps`` cuts a run's timeline into named spans (wall seconds), the time
+  outside the stages included; compare_genomes copies them into RunStats.
+- ``PhasePeaks`` reads the process's peak resident memory phase by phase.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import contextlib
 import os
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 
 class StageTimer:
@@ -62,3 +65,120 @@ def device_trace(trace_dir: Optional[str] = None):
         yield
     prof.export_chrome_trace(os.path.join(
         trace_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+class Laps:
+    """One thread's timeline cut into consecutive named spans: lap(name)
+    adds the wall seconds since the previous lap (or since the object was
+    made) to spans[name], so the spans of one run sum to its wall. Under
+    GSALIGN_TRACE each lap also writes a labelled instant into the
+    torch.profiler trace of an enclosing device_trace."""
+
+    def __init__(self):
+        self.spans: Dict[str, float] = {}
+        self.t = time.time()
+        self.traced = bool(os.environ.get("GSALIGN_TRACE"))
+
+    def lap(self, name: str) -> float:
+        now = time.time()
+        dt = now - self.t
+        self.t = now
+        self.spans[name] = self.spans.get(name, 0.0) + dt
+        if self.traced:
+            from torch.profiler import record_function
+            with record_function(f"lap:{name}"):
+                pass
+        return dt
+
+
+def rss_bytes() -> Tuple[int, int]:
+    """(peak, current) resident set of this process in bytes, from
+    /proc/self/status (the peak from getrusage where /proc is absent; the
+    current then 0)."""
+    peak = cur = 0
+    try:
+        with open("/proc/self/status") as fh:
+            for line in fh:
+                if line.startswith("VmHWM:"):
+                    peak = int(line.split()[1]) * 1024
+                elif line.startswith("VmRSS:"):
+                    cur = int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    if not peak:
+        import resource
+        peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    return peak, cur
+
+
+class PhasePeaks:
+    """Peak resident memory phase by phase. mark(name) records the peak of
+    the phase that ends there (since the previous mark, or since the object
+    was made), the RSS at its end and the process's peak so far.
+
+    The phase's peak comes from the kernel: after each mark the peak is
+    reset (writing 5 to /proc/self/clear_refs), so the next mark reads its
+    own phase alone. Where the reset is refused (`resets` False), a daemon
+    thread samples the RSS every `interval` seconds instead, and the
+    phase's peak is the largest sample (a spike shorter than the interval
+    can pass unseen; the peak so far cannot). stop() ends that thread
+    before a stage whose time is measured: a phase marked after it reads
+    its RSS at the mark only. The reset also moves getrusage's ru_maxrss,
+    which a process that uses this class therefore cannot read as its
+    whole-run peak: `peak` is that."""
+
+    def __init__(self, interval: float = 0.02):
+        self.marks = []
+        self._hwm = 0                    # the largest peak marked so far
+        self.resets = self._reset()
+        self._lock = threading.Lock()
+        self._sampled = rss_bytes()[1]
+        self._stop = threading.Event()
+        self._sampler = None
+        if not self.resets:
+            self._sampler = threading.Thread(
+                target=self._sample, args=(interval,), daemon=True)
+            self._sampler.start()
+
+    @staticmethod
+    def _reset() -> bool:
+        try:
+            with open("/proc/self/clear_refs", "w") as fh:
+                fh.write("5")
+            return True
+        except OSError:
+            return False
+
+    def _sample(self, interval: float) -> None:
+        while not self._stop.is_set():
+            cur = rss_bytes()[1]
+            with self._lock:
+                self._sampled = max(self._sampled, cur)
+            self._stop.wait(interval)
+
+    def stop(self) -> None:
+        """End the sampling thread, if one runs, and wait for it."""
+        self._stop.set()
+        if self._sampler is not None:
+            self._sampler.join()
+
+    def mark(self, name: str) -> dict:
+        hwm, cur = rss_bytes()
+        if self.resets:
+            peak = hwm
+            self._reset()
+        else:
+            with self._lock:
+                peak = max(self._sampled, cur)
+                self._sampled = cur
+        self._hwm = max(self._hwm, hwm, peak)
+        m = {"phase": name, "peak_rss": peak, "rss": cur,
+             "peak_so_far": self._hwm}
+        self.marks.append(m)
+        return m
+
+    @property
+    def peak(self) -> int:
+        """The largest peak of any phase so far (now included)."""
+        return max([rss_bytes()[0], self._hwm]
+                   + [m["peak_rss"] for m in self.marks])

@@ -95,6 +95,11 @@ def test_ctx_gather_extract_matches_numpy(sa_dtype):
     assert np.array_equal(g, g_expect)
     assert np.array_equal(t3, t3_expect)
     assert np.array_equal(b, b_expect)
+    # the port's form without the context array (build_fmindex's call)
+    t3_only, b_only = native_lib.ctx_gather_extract(text, sa, primary,
+                                                    threads=3, with_ctx=False)
+    assert np.array_equal(t3_only, t3_expect)
+    assert np.array_equal(b_only, b_expect)
 
 
 def test_pack_2bit():
@@ -138,8 +143,13 @@ def test_seg_gather_u8_dest_offsets():
 
 def test_sais_matches_sorted_suffixes():
     """SA-IS over a sentinel-terminated text against the suffixes sorted
-    in Python, in both packages."""
+    in Python, in both packages: the JAX package's reads the text, the
+    port's the codes (text - 1, the sentinel implied)."""
     rng = np.random.default_rng(8)
     t = np.concatenate([rng.integers(1, 5, 2000), [0]]).astype(np.uint8)
     expect = sorted(range(len(t)), key=lambda i: bytes(t[i:]))
-    assert both("sais", t, threads=2).tolist() == expect
+    want = jax_native.sais(t, threads=2)
+    assert want.tolist() == expect
+    got = native_lib.sais_codes(t[:-1] - 1, threads=2)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)

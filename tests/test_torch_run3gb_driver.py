@@ -94,6 +94,42 @@ def test_run3gb_index_round_trip(runs):
     assert "build_wall_s" not in res and "index built" not in stdout
 
 
+SPANS = ("setup", "chars_fwd_rc", "from_host", "query_codes", "seed",
+         "pass1", "dp_finish", "pass2", "emit", "vcf_close")
+
+
+@pytest.mark.parametrize("run", ["port8", "port1"])
+def test_run3gb_reports_memory_and_spans(runs, run):
+    """result.json's memory phases (the build's, SA-IS's levels among them,
+    or the load's, then the layout's and the align's) and the align's
+    spans, which cut compare_genomes' wall into named pieces."""
+    res, stdout = runs[run]
+    names = [p["phase"] for p in res["memory"]]
+    if run == "port8":
+        levels = [n for n in names if n.startswith("sais-depth")]
+        assert levels and levels[0].startswith("sais-depth0 (n=4000001)")
+        assert [n for n in names if n not in levels] == [
+            "sa-in", "sa", "gather", "tables", "jump", "save", "layout",
+            "align"]
+    else:
+        assert names == ["load", "layout", "align"]
+    rows = 2 * res["total_len"]
+    so_far = 0
+    for p in res["memory"]:
+        assert p["peak_bytes"] >= p["rss_bytes"] > 0, p
+        assert p["peak_so_far_bytes"] >= p["peak_bytes"], p
+        assert p["peak_b_per_row"] == round(p["peak_bytes"] / rows, 3)
+        assert f"[3gb] memory {p['phase']}: peak" in stdout
+        if not p["phase"].startswith("sais-depth"):
+            assert p["peak_so_far_bytes"] >= so_far, p
+            so_far = p["peak_so_far_bytes"]
+    assert res["peak_rss_gb"] >= max(p["peak_bytes"]
+                                     for p in res["memory"]) / 1e9 - 0.05
+    assert set(res["span_s"]) <= set(SPANS) and "seed" in res["span_s"]
+    assert abs(sum(res["span_s"].values()) - res["align_wall_s"]) <= \
+        0.2 + 0.05 * res["align_wall_s"]
+
+
 def test_run3gb_cuda_without_card_raises(tmp_path):
     """--device cuda (the default) on a host without a card raises; the
     tool does not fall back to the CPU."""

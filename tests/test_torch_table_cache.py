@@ -45,8 +45,9 @@ def test_second_compare_genomes_skips_host_tables(layouts):
     second = compare_genomes(fm, qry, AlignConfig(), verbose=False,
                              device="cpu")
     assert layouts == [fm]
-    assert dataclasses.asdict(first[0]) | {"stage_times": None} == \
-        dataclasses.asdict(second[0]) | {"stage_times": None}
+    timings = {"stage_times": None, "span_times": None}
+    assert dataclasses.asdict(first[0]) | timings == \
+        dataclasses.asdict(second[0]) | timings
 
 
 def test_cache_is_per_index(layouts):

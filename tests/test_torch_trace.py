@@ -80,3 +80,65 @@ def test_device_trace_writes_chrome_trace(monkeypatch, tmp_path):
         trace = json.load(fh)
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any("mul" in n for n in names)
+
+
+def test_laps_cut_a_timeline_into_spans():
+    """The port's Laps: each lap adds the time since the one before to its
+    name's span; the laps of a timeline sum to its wall."""
+    from gsalign_tpu_torch.utils import trace
+    t0 = time.time()
+    laps = trace.Laps()
+    time.sleep(0.02)
+    a = laps.lap("a")
+    b = laps.lap("b")
+    time.sleep(0.01)
+    a2 = laps.lap("a")
+    wall = time.time() - t0
+    assert a >= 0.02 and a2 >= 0.01 and b < 0.01
+    assert list(laps.spans) == ["a", "b"]
+    assert abs(laps.spans["a"] - (a + a2)) < 1e-9
+    assert abs(sum(laps.spans.values()) - wall) < 0.005
+
+
+def test_phase_peaks_read_each_phase():
+    """The port's PhasePeaks: a phase that touches 200 MB for 0.1 s shows
+    them in its own peak, the next phase does not (whether the kernel's
+    peak is reset or the RSS sampled), and the peak so far keeps them."""
+    from gsalign_tpu_torch.utils.trace import PhasePeaks
+    pp = PhasePeaks()
+    big = np.ones(200_000_000, dtype=np.uint8)
+    time.sleep(0.1)                  # seen by the sampler where it runs
+    del big
+    first = pp.mark("big")
+    second = pp.mark("small")
+    assert first["peak_rss"] >= first["rss"] > 0
+    assert first["peak_rss"] - first["rss"] >= 150_000_000
+    assert second["peak_rss"] < first["peak_rss"] - 150_000_000
+    assert second["peak_so_far"] >= first["peak_rss"]
+    assert pp.peak >= first["peak_rss"]
+    pp.stop()
+
+
+def test_phase_peaks_sample_where_the_reset_is_refused(monkeypatch):
+    """Without the kernel's reset, PhasePeaks samples the RSS on a thread:
+    the phases read apart all the same."""
+    from gsalign_tpu_torch.utils import trace
+    monkeypatch.setattr(trace.PhasePeaks, "_reset",
+                        staticmethod(lambda: False))
+    test_phase_peaks_read_each_phase()
+
+
+def test_phase_peaks_stop_ends_the_sampler(monkeypatch):
+    """stop() ends the sampling thread; a mark after it still reads the
+    RSS at the mark and the peak so far."""
+    from gsalign_tpu_torch.utils import trace
+    monkeypatch.setattr(trace.PhasePeaks, "_reset",
+                        staticmethod(lambda: False))
+    pp = trace.PhasePeaks(interval=0.01)
+    assert pp._sampler.is_alive()
+    first = pp.mark("before")
+    pp.stop()
+    assert not pp._sampler.is_alive()
+    after = pp.mark("after")
+    assert after["peak_rss"] >= after["rss"] > 0
+    assert after["peak_so_far"] >= first["peak_rss"]

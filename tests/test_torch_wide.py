@@ -108,6 +108,56 @@ def test_wide_device_tables_match_jax(sa_intv):
             assert a == b, f.name
 
 
+# the whole build's host memory at its peak, bytes a text row: the int64
+# SA (8), the text (1), the forward codes (0.5) and what is taken from the
+# SA before it is dropped (sa_samples 1, t3 1, the BWT codes 1), with 2 to
+# spare (an H100 host with 96 GiB free holds 6.2 G rows at 14.5, 10 GB left)
+BUILD_B_PER_ROW = 14.5
+BUILD_MEMORY_SCRIPT = r"""
+import json, sys
+import numpy as np
+from gsalign_tpu_torch import native_lib
+from gsalign_tpu_torch.genome.packing import Genome
+from gsalign_tpu_torch.index.fmindex import build_fmindex
+from gsalign_tpu_torch.utils.trace import PhasePeaks, rss_bytes
+native_lib.get_lib()
+n_bases = int(sys.argv[1])
+base = rss_bytes()[0]
+peaks = PhasePeaks()
+codes = np.random.default_rng(5).integers(0, 4, n_bases, dtype=np.uint8)
+g = Genome(names=["a", "b"], lengths=np.asarray([n_bases // 2,
+           n_bases - n_bases // 2]), offsets=np.asarray([0, n_bases // 2]),
+           holes=[], codes_fwd=codes)
+fm = build_fmindex(g, force_wide=True, threads=2, prefer_device=False,
+                   on_phase=peaks.mark)
+assert fm.rank_dtype == np.int64 and fm.sa_samples.dtype == np.int64
+rows = 2 * n_bases
+print(json.dumps({"peak": (peaks.peak - base) / rows,
+                  "phases": {m["phase"]: (m["peak_rss"] - base) / rows
+                             for m in peaks.marks}}))
+"""
+
+
+def test_wide_build_memory_stays_in_budget():
+    """A forced-wide build_fmindex of 8 M text rows (int64 SA, sa_intv 8)
+    in a subprocess: the peak resident memory it adds to its process, from
+    before the genome is made, in bytes a text row, under
+    BUILD_B_PER_ROW; every phase the build marks is reported. (Its tables
+    equal the JAX package's: test_wide_device_tables_match_jax.)"""
+    import json
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run(
+        [sys.executable, "-c", BUILD_MEMORY_SCRIPT, "4000000"], cwd=repo,
+        capture_output=True, text=True, check=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=repo))
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert list(got["phases"]) == ["sa-in", "sa", "gather", "tables",
+                                   "jump"]
+    assert got["peak"] <= BUILD_B_PER_ROW, got
+
+
 @pytest.mark.parametrize("sa_intv", [8, 32])
 def test_wide_rank_queries_match_jax_on_every_rank(sa_intv):
     """(b) plain occ_t3 (both modes), lf_t3 and resolve_sa on a forced-wide
