@@ -10,10 +10,13 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py wide-big   # phase 1, then a 1.08 Gb wide index
                                      # (2N > 2^31): minutes, tens of GB
     python3 chip_smoke.py tools      # phase 1, the 4.6 Mb pair, phase 9
+    python3 chip_smoke.py shard-times  # phase 1, the row-sharded seed
+                                     # kernels timed at 4, 8 and 16 blocks
     python3 chip_smoke.py 3gb [LEN]  # phase 1, then config 5 (3.1 Gb, or
-                                     # LEN bases) through tools/run_3gb and
-                                     # its --index restore: most of an
-                                     # hour, ~12.5 B a text row
+                                     # LEN bases) through tools/run_3gb,
+                                     # whole and over 8 row blocks, and its
+                                     # --index restore over 8 row blocks:
+                                     # 20-25 min, ~13.3 B a text row
 
 Phases (each raises on failure; nothing is caught):
   1. the card (nvidia-smi name and power limit), the torch and CUDA
@@ -71,7 +74,8 @@ Phases (each raises on failure; nothing is caught):
      unsharded runs' output, one scan launch a stripe and four DP launches
      for each of the unsharded run's; the row-sharded instances of
      seed_scan, seed_lockstep and resolve_sa against their plain versions
-     on the cut tables and timed beside the whole-table instances;
+     on the cut tables and timed beside the whole-table instances, and
+     seed_scan and resolve_sa again over 16 row blocks;
      dryrun_multichip(4);
   8. the seed stage's device operations per scan in both SA modes, under
      torch.profiler;
@@ -92,9 +96,20 @@ counts held against the JAX tool's record; a 200 kb query whose seeds lie
 past 2^32, seed_scan and resolve_sa held against their plain versions on
 it; occ_rows against the plain occ_t3 on ranks in t3 rows past word 2^32
 (of the real t3 where it holds more than 2^32 words, else of a synthetic
-one). Once that process has exited, a second one restores the saved
-index (run_3gb --index), lays it out and aligns: the same counts and the
-same out.maf and out.vcf bytes.
+one). Then, as the JAX tool's record did, over a mesh of 8 entries of the
+card with t3 and sa_samples cut into 8 row blocks (views of the tables the
+align used): seed_scan's and resolve_sa's row-sharded instances against
+their plain versions on that query's lanes and ranks and on every block's
+edge ranks (past 2^32 in the upper blocks), timed beside the whole-table
+instances, and the three-slice align through the mesh: the same counts
+and out.maf and out.vcf bytes, the sharded instances alone launched. Once
+that process has exited, a second one restores the saved index (run_3gb
+--index --entries 8), lays it out and aligns over the 8 row blocks: the
+same counts and the same out.maf and out.vcf bytes.
+shard-times: seed_scan and resolve_sa over 4, 8 and 16 row blocks of the
+card on the 12 Mb sampled and forced-wide indexes, each beside the
+whole-table instance in turns; a cut that the kernels refuse is printed
+as refused (copied into an older checkout, it times that tree's kernels).
 Every align run sets the kernels' launch counts to 0 just before it and
 reads them just after. Each kernel's bound is the larger of its bytes over
 the card's memory rate and its operations over the card's integer rate,
@@ -1015,21 +1030,27 @@ def scan_work(dfm, q_rows, starts, stops, prm) -> dict:
             "direct_steps": direct_steps, "init_steps": init_steps}
 
 
+def first_round(dfm, queries):
+    """scan_lanes' arguments (q_rows, starts, stops, prm) of the first
+    round of find_seeds_all on `queries`, in the default (xla) SA mode."""
+    from gsalign_tpu_torch.ops import seeding
+    rounds = []
+    with sa_mode_env(None):
+        seeding.find_seeds_all(dfm, queries, rounds=rounds)
+    return rounds[0][:4]
+
+
 def scan_check(tag: str, dfm, queries):
     """seed_scan against the plain scan on the first round's lanes of
     `queries`: records and lane state must be equal. Returns ({ms,
     plain_ms, max_abs_err, bound_ms, bound_by}, the round's scan_lanes
     arguments (q_rows, starts, stops, prm), the plain scan's lanes)."""
-    import torch
     from gsalign_tpu_torch.ops import seed_cuda, seeding
-    rounds = []
-    with sa_mode_env(None):
-        seeding.find_seeds_all(dfm, queries, rounds=rounds)
-    q_rows, starts, stops, prm = rounds[0][:4]
+    args = first_round(dfm, queries)
+    q_rows, starts, stops, prm = args
 
     def fresh():
-        return seeding.ScanLanes.start(starts, stops, prm.max_out,
-                                       q_rows.device)
+        return fresh_lanes(args)
 
     def err_of(lanes, st, plain_lanes, plain_st):
         return max(int(np.abs(st - plain_st).max()),
@@ -1484,6 +1505,85 @@ def sharded_times(run, whole, cut, fresh, reps: int = 5, queued=False):
     return ms["whole"], ms["cut"]
 
 
+def say_sharded(name: str, blocks: int, what: str, r: dict) -> None:
+    say(f"[kernel] {name} row-sharded ({blocks} blocks) {what}: kernel "
+        f"{r['ms']:.4f} ms beside the whole-table instance's "
+        f"{r['whole_ms']:.4f} ms on the same inputs "
+        f"({100 * (r['ms'] / r['whole_ms'] - 1):+.1f} %)  plain "
+        f"{r['plain_ms']:.1f} ms  "
+        f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}, the whole-table "
+        f"instance's: the same bytes)  max |diff| {r['max_abs_err']}")
+
+
+def sharded_result(ms, whole_ms, plain_ms, err, bnd) -> dict:
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+            "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"],
+            "whole_ms": whole_ms}
+
+
+def fresh_lanes(scan_args):
+    """New lanes of a scan round (scan_lanes' arguments)."""
+    from gsalign_tpu_torch.ops import seeding
+    q_rows, starts, stops, prm = scan_args
+    return seeding.ScanLanes.start(starts, stops, prm.max_out, q_rows.device)
+
+
+def sharded_scan_check(whole, cut, scan_args, p_lanes, bnd) -> dict:
+    """seed_scan's ShardedTable instance on `cut` (whole's rows in blocks)
+    against the plain scan of the cut tables (through t3_row_fetch) on the
+    lanes of scan_args, itself equal to p_lanes, the plain scan of the
+    whole tables; then timed beside the whole-table instance, in turns
+    (sharded_times), launch and read-back. Returns sharded_result's
+    dict."""
+    from gsalign_tpu_torch.ops import seed_cuda, seeding
+    q_rows, _, _, prm = scan_args
+
+    def fresh():
+        return fresh_lanes(scan_args)
+    plain = fresh()
+    plain_ms = timed(lambda: seeding.seed_scan_plain(cut, q_rows, plain,
+                                                     prm))[1]
+    lanes = fresh()
+    seed_cuda.seed_scan(cut, q_rows, lanes, prm)
+    err = max(int((a - b).abs().max()) for a, b in (
+        (lanes.st, plain.st), (lanes.out, plain.out),
+        (plain.st, p_lanes.st), (plain.out, p_lanes.out)))
+    if err:
+        raise AssertionError(f"seed_scan row-sharded differs from the plain "
+                             f"scan (max |diff| {err})")
+    whole_ms, ms = sharded_times(
+        lambda t, lanes: seed_cuda.seed_scan(t, q_rows, lanes, prm),
+        whole, cut, fresh)
+    return sharded_result(ms, whole_ms, plain_ms, err, bnd)
+
+
+def sharded_resolve_check(whole, cut, k, bnd, edges=None) -> dict:
+    """resolve_sa's ShardedTable instance on `cut` against the plain walk
+    through plane_fetch on the cut tables, itself equal to the plain walk
+    on the whole tables, on the ranks k and (checked, not timed) `edges`;
+    then timed on k beside the whole-table instance, in turns, 20 launches
+    queued behind the spin kernel. Returns sharded_result's dict."""
+    from gsalign_tpu_torch.ops import rank, seed_cuda
+    want, plain_ms = timed(lambda: rank.resolve_sa(cut, k))
+    checks = [(k, want)] if edges is None else \
+        [(k, want), (edges, rank.resolve_sa(cut, edges))]
+    err = max(max(int((seed_cuda.resolve_sa(cut, kk) - w).abs().max()),
+                  int((rank.resolve_sa(whole, kk) - w).abs().max()))
+              for kk, w in checks)
+    if err:
+        raise AssertionError(f"resolve_sa row-sharded differs from the plain "
+                             f"walk (max |diff| {err})")
+    whole_ms, ms = sharded_times(lambda t, _: seed_cuda.resolve_sa(t, k),
+                                 whole, cut, lambda: None, reps=20,
+                                 queued=True)
+    return sharded_result(ms, whole_ms, plain_ms, err, bnd)
+
+
+# row blocks of the mesh phase's one check past the 8 blocks that the
+# kernels took before their bound was raised (seed_cuda.MAX_SHARDS)
+MANY_BLOCKS = 16
+
+
 def sharded_checks() -> dict:
     """The row-sharded instances against their plain versions (the plain
     scan, loop and walk reading the same cut tables through t3_row_fetch
@@ -1491,57 +1591,32 @@ def sharded_checks() -> dict:
     the whole-table instances on the same inputs, in turns: seed_scan on the
     12 Mb sa_intv=8 index's first round, seed_lockstep in pallas mode on
     the 4.6 Mb full-SA index's, resolve_sa on the ranks of the 12 Mb
-    forced-wide run. Their bounds are the whole-table instances' (the same
-    bytes and operations). Returns {kernel_sharded: {ms, plain_ms,
-    max_abs_err, bound_ms, bound_by, whole_ms}}."""
+    forced-wide run, each over MESH_ENTRIES blocks; then over MANY_BLOCKS
+    blocks seed_scan and resolve_sa.
+    Their bounds are the whole-table instances' (the same bytes and
+    operations). Returns {kernel_sharded: {ms, plain_ms, max_abs_err,
+    bound_ms, bound_by, whole_ms}} of the MESH_ENTRIES-block checks."""
     import dataclasses
     import torch
-    from gsalign_tpu_torch.ops import cuda_build, rank, seed_cuda, seeding
+    from gsalign_tpu_torch.ops import cuda_build, seed_cuda, seeding
     from gsalign_tpu_torch.parallel.mesh import make_mesh, shard_index_rows
     mesh = make_mesh([torch.device("cuda")] * MESH_ENTRIES)
     out = {}
 
-    def keep(name, ms, plain_ms, err, bnd, whole_ms, what):
-        out[f"{name}_sharded"] = {
-            "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
-            "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"],
-            "whole_ms": whole_ms}
-        say(f"[kernel] {name} row-sharded ({MESH_ENTRIES} blocks) {what}: "
-            f"kernel {ms:.4f} ms beside the whole-table instance's "
-            f"{whole_ms:.4f} ms on the same inputs "
-            f"({100 * (ms / whole_ms - 1):+.1f} %)  plain {plain_ms:.1f} ms  "
-            f"bound "
-            f"{bnd['bound_ms']:.5f} ms ({bnd['bound_by']}, the whole-table "
-            f"instance's: the same bytes)  max |diff| {err}")
-
     # seed_scan, 12 Mb sa_intv=8
-    dfm, _, (res, (q_rows, starts, stops, prm), p_lanes) = CASES["12mb-sa8"]
-    cut = shard_index_rows(dfm, mesh)
-
-    def fresh():
-        return seeding.ScanLanes.start(starts, stops, prm.max_out,
-                                       q_rows.device)
-    plain = fresh()
-    p_st, plain_ms = timed(lambda: seeding.seed_scan_plain(cut, q_rows,
-                                                           plain, prm))
-    lanes = fresh()
-    st = seed_cuda.seed_scan(cut, q_rows, lanes, prm)
-    err = max(int(np.abs(st - p_st).max()),
-              int((lanes.out - plain.out).abs().max()),
-              int((plain.buf - p_lanes.buf).abs().max()))
-    if err:
-        raise AssertionError(f"seed_scan row-sharded differs from the plain "
-                             f"scan (max |diff| {err})")
-    whole_ms, ms = sharded_times(
-        lambda t, lanes: seed_cuda.seed_scan(t, q_rows, lanes, prm),
-        dfm, cut, fresh)
-    keep("seed_scan", ms, plain_ms, err, res, whole_ms,
-         f"12mb-sa8, {len(starts)} lanes, launch and read-back")
+    dfm8, _, (res, args8, p_lanes8) = CASES["12mb-sa8"]
+    out["seed_scan_sharded"] = sharded_scan_check(
+        dfm8, shard_index_rows(dfm8, mesh), args8, p_lanes8, res)
+    say_sharded("seed_scan", MESH_ENTRIES, f"12mb-sa8, {len(args8[1])} "
+                f"lanes, launch and read-back", out["seed_scan_sharded"])
 
     # seed_lockstep, 4.6 Mb pallas
     dfm, _, (_, (q_rows, starts, stops, prm), _) = CASES["4.6mb"]
     prm = dataclasses.replace(prm, sa_mode="pallas")
     cut = shard_index_rows(dfm, mesh)
+
+    def fresh():
+        return fresh_lanes((q_rows, starts, stops, prm))
     plain = fresh()
     plain_ms = timed(lambda: seeding.scan_lockstep(cut, q_rows, plain, prm,
                                                    plain=True))[1]
@@ -1560,26 +1635,88 @@ def sharded_checks() -> dict:
         lambda t, lanes: seed_cuda.launch_lockstep(lib, stream, t, q_rows,
                                                    lanes, prm, 0, None),
         dfm, cut, fresh, queued=True)
-    keep("seed_lockstep", ms, plain_ms, err, CASES["bounds"]["seed_step"],
-         whole_ms, f"4.6mb pallas, {int(plain.counters[0])} iterations")
+    out["seed_lockstep_sharded"] = sharded_result(
+        ms, whole_ms, plain_ms, err, CASES["bounds"]["seed_step"])
+    say_sharded("seed_lockstep", MESH_ENTRIES, f"4.6mb pallas, "
+                f"{int(plain.counters[0])} iterations",
+                out["seed_lockstep_sharded"])
 
     # resolve_sa, the 12 Mb forced-wide run's ranks
-    dfm, queries, _ = CASES["12mb-wide"]
-    cut = shard_index_rows(dfm, mesh)
-    k = hit_ranks_of(dfm, queries)
-    want, plain_ms = timed(lambda: rank.resolve_sa(cut, k))
-    got = seed_cuda.resolve_sa(cut, k)
-    err = max(int((got - want).abs().max()),
-              int((rank.resolve_sa(dfm, k) - want).abs().max()))
-    if err:
-        raise AssertionError(f"resolve_sa row-sharded differs from the plain "
-                             f"walk (max |diff| {err})")
-    whole_ms, ms = sharded_times(lambda t, _: seed_cuda.resolve_sa(t, k),
-                                 dfm, cut, lambda: None, reps=20,
-                                 queued=True)
-    keep("resolve_sa", ms, plain_ms, err, CASES["bounds"]["resolve_sa"],
-         whole_ms, f"12mb-wide, {k.numel()} ranks")
+    dfmw, queries, _ = CASES["12mb-wide"]
+    k = hit_ranks_of(dfmw, queries)
+    out["resolve_sa_sharded"] = sharded_resolve_check(
+        dfmw, shard_index_rows(dfmw, mesh), k, CASES["bounds"]["resolve_sa"])
+    say_sharded("resolve_sa", MESH_ENTRIES, f"12mb-wide, {k.numel()} ranks",
+                out["resolve_sa_sharded"])
+
+    # MANY_BLOCKS blocks of the one card
+    many = make_mesh([torch.device("cuda")] * MANY_BLOCKS)
+    say_sharded("seed_scan", MANY_BLOCKS, f"12mb-sa8, {len(args8[1])} lanes",
+                sharded_scan_check(dfm8, shard_index_rows(dfm8, many), args8,
+                                   p_lanes8, res))
+    say_sharded("resolve_sa", MANY_BLOCKS, f"12mb-wide, {k.numel()} ranks",
+                sharded_resolve_check(dfmw, shard_index_rows(dfmw, many), k,
+                                      CASES["bounds"]["resolve_sa"]))
     return out
+
+
+# row blocks that phase_shard_times cuts the 12 Mb tables into
+SHARD_TIMES_BLOCKS = (4, 8, MANY_BLOCKS)
+
+
+def phase_shard_times() -> None:
+    """The row-sharded instances of seed_scan (the 12 Mb sa_intv=8 index's
+    first round, 1,200 lanes, launch and read-back) and resolve_sa (the 12
+    Mb forced-wide run's ranks, 20 launches queued) timed beside their
+    whole-table instances, in turns (sharded_times), over
+    SHARD_TIMES_BLOCKS row blocks of the one card, each cut's results
+    equal to the whole-table instance's. A cut that the kernels refuse
+    (ValueError: more blocks than seed_cuda takes) is printed as refused.
+    It uses nothing that this module's earlier versions' package lacks,
+    so copied into a checkout of one it times that tree's kernels: run it
+    in two trees in turns to compare them on one card."""
+    import torch
+    from gsalign_tpu_torch.ops import seed_cuda
+    from gsalign_tpu_torch.parallel.mesh import make_mesh, shard_index_rows
+    d = make_data("12mb", 12_000_000)
+    sampled_indexes(d)
+    dfm8, q8 = load_case("12mb", "idx8")
+    dfmw, qw = load_case("12mb", "idxw")
+    args = first_round(dfm8, q8)
+    q_rows, _, _, prm = args
+    ref = fresh_lanes(args)
+    seed_cuda.seed_scan(dfm8, q_rows, ref, prm)
+    k = hit_ranks_of(dfmw, qw)
+    ref_sa = seed_cuda.resolve_sa(dfmw, k)
+    src = "gsalign_tpu_torch/csrc/seed.cu"
+    with open(os.path.join(REPO, src), "rb") as fh:
+        digest = hashlib.sha256(fh.read()).hexdigest()[:12]
+    for n in SHARD_TIMES_BLOCKS:
+        mesh = make_mesh([torch.device("cuda")] * n)
+        cut8, cutw = shard_index_rows(dfm8, mesh), shard_index_rows(dfmw, mesh)
+        lanes = fresh_lanes(args)
+        try:
+            seed_cuda.seed_scan(cut8, q_rows, lanes, prm)
+        except ValueError as e:
+            say(f"[shard-times] {src} {digest}, {n} blocks: refused ({e})")
+            continue
+        got = seed_cuda.resolve_sa(cutw, k)
+        if not (torch.equal(lanes.st, ref.st) and torch.equal(lanes.out,
+                                                              ref.out)
+                and torch.equal(got, ref_sa)):
+            raise AssertionError(f"shard-times: {n} blocks differ from the "
+                                 f"whole tables")
+        scan = sharded_times(
+            lambda t, lanes: seed_cuda.seed_scan(t, q_rows, lanes, prm),
+            dfm8, cut8, lambda: fresh_lanes(args))
+        walk = sharded_times(lambda t, _: seed_cuda.resolve_sa(t, k), dfmw,
+                             cutw, lambda: None, reps=20, queued=True)
+        for name, (whole_ms, ms), what in (
+                ("seed_scan", scan, f"12mb-sa8, {len(args[1])} lanes"),
+                ("resolve_sa", walk, f"12mb-wide, {k.numel()} ranks")):
+            say(f"[shard-times] {src} {digest}, {n} blocks: {name} ({what}) "
+                f"row-sharded {ms:.4f} ms, whole-table {whole_ms:.4f} ms "
+                f"({100 * (ms / whole_ms - 1):+.1f} %), equal")
 
 
 def mesh_seed_times(mode: str, reps: int = 3) -> list:
@@ -1969,6 +2106,11 @@ def occ_rows_check(dfm, first_row: int, what: str, max_rank) -> None:
 BUILD_B_PER_ROW = 14.5
 
 
+# the JAX tool's record of config 5 aligned through a mesh of 8 devices
+# with t3 and sa_samples cut into their row blocks (docs/SCALING_3GB.md)
+CONFIG5_ENTRIES = 8
+
+
 def config5_args(total_len: int) -> list:
     """run_3gb's arguments for phase_3gb at total_len: the tool's 8 Mb
     slices; a genome under 160 Mb (a quick rehearsal of the phase) gets
@@ -2068,7 +2210,8 @@ def phase_3gb(total_len: int):
         f"text; seed stage {seed_s:.3f} s; t3 {dfm.t3.shape[0]} rows x "
         f"{dfm.t3.shape[1]} = {words} words "
         f"({'past' if words > 2 ** 32 else 'below'} 2^32)")
-    scan_check("3gb", dfm, [qry])
+    scan = scan_check("3gb", dfm, [qry])
+    rs = None
     if not dfm.direct_ok:
         rs = resolve_check("3gb", dfm, [qry])
         k = hit_ranks_of(dfm, [qry])
@@ -2103,16 +2246,130 @@ def phase_3gb(total_len: int):
         say(f"[3gb] {total_len} bases (no JAX record at this length): 3 "
             f"alignments over every query base, ANI {res['ani_pct']}, "
             f"max text position {res['max_text_rpos']}")
+    t0 = time.time()
+    mesh_3gb(fm, dfm, [qry], scan, rs, res)
+    say(f"[3gb] the 8-block checks and align: {time.time() - t0:.1f} s")
+
+
+def block_edge_ranks(dfm, cut) -> "torch.Tensor":
+    """Ranks at the edges of every row block of a cut index: the first and
+    the last rank of the first and the last t3 row of each t3 block (128
+    ranks a row), and the ranks of the first and the last sample of each
+    sa_samples block and the rank after each (a walk of one LF step into
+    the block), within [0, seq_len]."""
+    import torch
+    k = []
+    t3 = cut.row_shards["t3"]
+    for b in range(len(t3.blocks)):
+        for r in (b * t3.rows, (b + 1) * t3.rows - 1):
+            k += [128 * r, 128 * r + 127]
+    sa = cut.row_shards["sa_samples"]
+    for b in range(len(sa.blocks)):
+        for smp in (b * sa.rows, (b + 1) * sa.rows - 1):
+            k += [smp * dfm.sa_intv, smp * dfm.sa_intv + 1]
+    return torch.tensor(k, dtype=torch.int64, device=dfm.device).clamp(
+        0, dfm.seq_len)
+
+
+def mesh_3gb(fm, dfm, queries, scan, rs, whole: dict) -> None:
+    """Config 5 through the CONFIG5_ENTRIES-entry row-sharded mesh, as the
+    JAX tool's record ran it, on the device tables that the whole-table
+    align used: t3 and sa_samples cut into CONFIG5_ENTRIES row blocks of
+    the one card (parallel/mesh.shard_index_rows: views, but for the
+    zero-padded last blocks, which are copies). seed_scan's instance of
+    the blocks against the plain scan of the cut tables on the lanes of
+    scan_check's round (`scan`); on a sampled index resolve_sa's against
+    the plain walk on the query's ranks and on every block's edge ranks
+    (block_edge_ranks), the upper blocks' past 2^32 on a 6.2 G-row index;
+    both timed beside the whole-table instances in turns, with their bounds
+    (rs: resolve_check's). Then run_3gb.align over the mesh: the whole-table
+    run's counts (`whole`; at CONFIG5_LEN the JAX record's), mesh_devices
+    CONFIG5_ENTRIES, its out.maf and out.vcf bytes, and the sharded
+    instances alone launched, counts set to 0 just before it and read just
+    after."""
+    import torch
+    from gsalign_tpu_torch.parallel.mesh import make_mesh, shard_index_rows
+    from gsalign_tpu_torch.tools import run_3gb
+    dev = dfm.device
+    mesh = make_mesh([dev] * CONFIG5_ENTRIES)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    t0 = time.time()
+    cut = shard_index_rows(dfm, mesh)
+    torch.cuda.synchronize()
+    copied = torch.cuda.memory_allocated(dev) - before
+    for f, sh in cut.row_shards.items():
+        base = getattr(dfm, f).untyped_storage().data_ptr()
+        views = sum(b.untyped_storage().data_ptr() == base
+                    for b in sh.blocks)
+        say(f"[3gb] {f} {tuple(getattr(dfm, f).shape)} cut into "
+            f"{len(sh.blocks)} blocks of {sh.rows} rows; {views} of them "
+            f"views of the whole table")
+    say(f"[3gb] the cut: {time.time() - t0:.2f} s, {copied} bytes copied on "
+        f"the card (the zero-padded last blocks), beside "
+        f"{before / 2 ** 30:.2f} GiB allocated")
+    r = sharded_scan_check(dfm, cut, scan[1], scan[2], scan[0])
+    say_sharded("seed_scan", CONFIG5_ENTRIES, f"3gb, {len(scan[1][1])} "
+                f"lanes of the 200 kb query, launch and read-back", r)
+    if rs is not None:
+        k = hit_ranks_of(dfm, queries)
+        edges = block_edge_ranks(dfm, cut)
+        rows = cut.row_shards["sa_samples"].rows * dfm.sa_intv
+        upper = [b for b in range(CONFIG5_ENTRIES) if b * rows >= 2 ** 32]
+        if dfm.seq_len > 2 ** 32 + 4_000_000 and not upper:
+            raise AssertionError("3gb: no sa_samples block starts past 2^32")
+        r = sharded_resolve_check(dfm, cut, k, rs, edges=edges)
+        say_sharded("resolve_sa", CONFIG5_ENTRIES, f"3gb, {k.numel()} ranks "
+                    f"({int((k >= 2 ** 32).sum())} >= 2^32) timed; checked "
+                    f"also on {edges.numel()} block-edge ranks "
+                    f"({int((edges >= 2 ** 32).sum())} >= 2^32; sa_samples "
+                    f"blocks {upper} start past 2^32)", r)
+    del cut
+    torch.cuda.empty_cache()
+
+    out = os.path.join(WORK, "3gb")
+    files = {x: read(os.path.join(out, f"out.{x}")) for x in ("maf", "vcf")}
+    records = run_3gb.make_queries(fm.genome, whole["query_bp"] // 3)
+    zero_counts()
+    res = run_3gb.align(fm, records, dev, CONFIG5_ENTRIES, out)
+    launches = launch_counts()
+    say(f"[3gb] align over {CONFIG5_ENTRIES} row blocks: {json.dumps(res)}; "
+        f"kernel launches {launches}")
+    keys = [k for k in JAX_3GB if k not in ("wide", "sa_intv")] \
+        + ["query_bp"]
+    got = {k: res[k] for k in keys}
+    if got != {k: whole[k] for k in keys}:
+        raise AssertionError(f"3gb over {CONFIG5_ENTRIES} blocks: {got} "
+                             f"differs from the whole-table run's")
+    if res["mesh_devices"] != CONFIG5_ENTRIES:
+        raise AssertionError(f"3gb: mesh_devices {res['mesh_devices']}")
+    want = ("seed_scan_sharded",) + (() if rs is None
+                                     else ("resolve_sa_sharded",))
+    if any(launches[k] <= 0 for k in want) or launches["seed_scan"] or \
+            launches["resolve_sa"]:
+        raise AssertionError(f"3gb over {CONFIG5_ENTRIES} blocks: launches "
+                             f"{launches}: the sharded instances {want} "
+                             f"must run, the whole-table ones not")
+    for x, data in files.items():
+        if read(os.path.join(out, f"out.{x}")) != data:
+            raise AssertionError(f"3gb over {CONFIG5_ENTRIES} blocks: out.{x}"
+                                 f" differs from the whole-table run's")
+    say(f"[3gb] over {CONFIG5_ENTRIES} row blocks: the whole-table run's "
+        f"counts, mesh_devices {res['mesh_devices']}, the same out.maf "
+        f"({len(files['maf'])} bytes) and out.vcf ({len(files['vcf'])} "
+        f"bytes); align {res['align_wall_s']} s")
 
 
 def phase_3gb_processes(total_len: int) -> None:
     """phase_3gb in a process of its own (`chip_smoke.py 3gb-build LEN`);
     once it has exited (and its memory with it), the restore as the JAX
     tool's record did it: `python -m gsalign_tpu_torch.tools.run_3gb
-    --index` in a second process loads the saved index, lays it out on the
-    card and aligns; its counts and its out.maf and out.vcf bytes must
-    equal the build run's. The earlier artifacts are cleared first: the
-    index alone is about 7 bytes a text row of disk."""
+    --index … --entries CONFIG5_ENTRIES` in a second process loads the
+    saved index, lays it out on the card and aligns through the mesh with
+    t3 and sa_samples cut into CONFIG5_ENTRIES row blocks; its counts and
+    its out.maf and out.vcf bytes must equal the build run's, and only the
+    seed kernels' sharded instances may launch. The earlier artifacts are
+    cleared first: the index alone is about 7 bytes a text row of disk."""
     shutil.rmtree(WORK, ignore_errors=True)
     out = os.path.join(WORK, "3gb")
     t0 = time.time()
@@ -2131,7 +2388,8 @@ def phase_3gb_processes(total_len: int) -> None:
     t0 = time.time()
     subprocess.run([sys.executable, "-m", "gsalign_tpu_torch.tools.run_3gb"]
                    + config5_args(total_len)
-                   + ["--index", os.path.join(out, "idx"), "--out", out],
+                   + ["--index", os.path.join(out, "idx"), "--out", out,
+                      "--entries", str(CONFIG5_ENTRIES)],
                    check=True, cwd=REPO)
     wall = time.time() - t0
     with open(os.path.join(out, "result.json")) as fh:
@@ -2139,22 +2397,36 @@ def phase_3gb_processes(total_len: int) -> None:
     keys = list(JAX_3GB) + ["query_bp"]
     got = {k: again[k] for k in keys}
     want = {k: built[k] for k in keys}
-    say(f"[3gb] restore (run_3gb --index, a second process): {wall:.1f} s; "
-        f"index {idx_bytes} bytes on disk, loaded in "
-        f"{again['load_wall_s']} s, laid out in {again['table_layout_s']} "
-        f"s, aligned in {again['align_wall_s']} s, peak RSS "
-        f"{again['peak_rss_gb']} GB; counts {json.dumps(got)}")
+    peak = max(ph["peak_so_far_bytes"] for ph in again["memory"])
+    say(f"[3gb] restore (run_3gb --index --entries {CONFIG5_ENTRIES}, a "
+        f"second process): {wall:.1f} s; index {idx_bytes} bytes on disk, "
+        f"loaded in {again['load_wall_s']} s, laid out in "
+        f"{again['table_layout_s']} s, aligned over "
+        f"{again['mesh_devices']} row blocks in {again['align_wall_s']} s "
+        f"(spans {json.dumps(again['span_s'])}), peak RSS "
+        f"{again['peak_rss_gb']} GB ({peak / (2 * total_len):.3f} B a text "
+        f"row); kernel launches {json.dumps(again['kernel_launches'])}; "
+        f"counts {json.dumps(got)}")
     memory_lines("restore ", again)
     if got != want:
         raise AssertionError(f"3gb restore: {got} differs from the build "
                              f"run's {want}")
+    n = again["kernel_launches"]
+    if again["mesh_devices"] != CONFIG5_ENTRIES or \
+            n["seed_scan_sharded"] <= 0 or n["seed_scan"] or n["resolve_sa"] \
+            or (built["sa_intv"] != 1 and n["resolve_sa_sharded"] <= 0):
+        raise AssertionError(f"3gb restore: mesh_devices "
+                             f"{again['mesh_devices']}, launches {n}: not "
+                             f"the sharded instances over "
+                             f"{CONFIG5_ENTRIES} blocks")
     for k, data in files.items():
         if read(os.path.join(out, f"out.{k}")) != data:
             raise AssertionError(f"3gb restore: out.{k} differs from the "
                                  f"build run's")
-    say(f"[3gb] the restored index gives the build run's counts and the "
-        f"same out.maf ({len(files['maf'])} bytes) and out.vcf "
-        f"({len(files['vcf'])} bytes)")
+    say(f"[3gb] the restored index over {CONFIG5_ENTRIES} row blocks gives "
+        f"the build run's counts and the same out.maf "
+        f"({len(files['maf'])} bytes) and out.vcf ({len(files['vcf'])} "
+        f"bytes)")
 
 
 def phase_sweep():
@@ -2247,8 +2519,8 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["3gb"] and len(sys.argv) <= 3:
         # BASELINE.json config 5 (or a shorter genome, LEN bases): about
-        # 12.5 bytes of host memory a text row (PERF.md) and most of an
-        # hour at full scale. No result lines.
+        # 13.3 bytes of host memory a text row (PERF.md) and 20-25 minutes
+        # at full scale. No result lines.
         try:
             phase_card()
             phase_3gb_processes(int(sys.argv[2]) if len(sys.argv) == 3
@@ -2267,6 +2539,15 @@ def main() -> int:
             phase_card()
             d = make_data("4.6mb", 4_600_000)
             phase_tools(d)
+        finally:
+            shutil.rmtree(WORK, ignore_errors=True)
+        return 0
+    if sys.argv[1:] == ["shard-times"]:
+        # the row-sharded instances timed beside the whole-table ones at
+        # 4, 8 and 16 blocks (about a minute). No result lines.
+        try:
+            phase_card()
+            phase_shard_times()
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
         return 0

@@ -133,7 +133,16 @@ typedef unsigned long long u64;
 // rows == 0: the table is read whole from its own pointer. A table that is
 // not cut in a sharded run is one block of all its rows. Must match
 // ops/seed_cuda._Shards.
-constexpr int kMaxShards = 8;
+//
+// The block addresses travel in the kernel's parameters, by value, so a
+// row's block is one read of the constant bank (the same for a warp that
+// reads one row) and no table of addresses is uploaded before a launch.
+// kMaxShards bounds a mesh's entries: 1,024, more than the cards of any one
+// host. It makes SeedArgs 8,480 bytes and ResolveArgs (two tables) 16,512,
+// within the 32,764 bytes of kernel parameters that CUDA 12.1 and later
+// allow (the kernels take them as __grid_constant__: read in place, never
+// copied to a thread's stack).
+constexpr int kMaxShards = 1024;
 struct Shards {
   const void* block[kMaxShards];
   long long rows;          // rows a block
@@ -813,7 +822,7 @@ __device__ __forceinline__ i64 stage_window(const SeedArgs& a, u32* win,
 // which the wrapper turns into an exception.
 template <class Rows, class Table>
 __global__ void __launch_bounds__(kScanWarps * 32)
-seed_scan_kernel(const SeedArgs a) {
+seed_scan_kernel(const __grid_constant__ SeedArgs a) {
   u64* shared64 = seeddev::dyn_smem64();
   // the only block-wide barrier: warps part after it
   const SharedTables tb = stage_tables<Rows>(a, shared64);
@@ -890,7 +899,7 @@ __device__ __forceinline__ void lockstep_lane(Lane& s, const SeedArgs& a,
 // barrier in between, which no block passes before all have read.
 template <bool kStaged, class Rows, class Table>
 __global__ void __launch_bounds__(kLockWarps * 32)
-seed_lockstep_kernel(const SeedArgs a) {
+seed_lockstep_kernel(const __grid_constant__ SeedArgs a) {
   u64* shared64 = seeddev::dyn_smem64();
   const SharedTables tb = stage_tables<Rows>(a, shared64);
   u64* warp_counts = shared64 + Heads<Rows>::kScanHead;   // [2, kLockWarps]
@@ -1002,7 +1011,7 @@ seed_lockstep_kernel(const SeedArgs a) {
 // primary's (stored as 255), which is never used.
 template <class Rows, class Table>
 __global__ void __launch_bounds__(kResolveThreads)
-resolve_sa_kernel(const ResolveArgs a) {
+resolve_sa_kernel(const __grid_constant__ ResolveArgs a) {
   constexpr int G = Rows::kGroup;
   const int lane = threadIdx.x & 31, t = lane & (G - 1);
   const unsigned mask = group_mask<G>(lane);

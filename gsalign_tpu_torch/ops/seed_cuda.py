@@ -51,7 +51,9 @@ from gsalign_tpu_torch.ops import rank as rank_ops
 from gsalign_tpu_torch.ops import seeding
 
 _vp, _ll = ctypes.c_void_p, ctypes.c_longlong
-MAX_SHARDS = 8          # csrc/seed.cu kMaxShards: row blocks a table
+# csrc/seed.cu kMaxShards: the most row blocks of a table (a mesh's
+# entries), more than the cards of any one host
+MAX_SHARDS = 1024
 
 
 class _Shards(ctypes.Structure):
@@ -134,7 +136,8 @@ def _shards(dfm, field: str, dtype, dev) -> _Shards:
     blocks = sh.blocks if sh is not None else (getattr(dfm, field),)
     if len(blocks) > MAX_SHARDS:
         raise ValueError(f"{field} is cut into {len(blocks)} blocks; the "
-                         f"kernels take at most {MAX_SHARDS}")
+                         f"kernels take at most MAX_SHARDS = {MAX_SHARDS} "
+                         f"(csrc/seed.cu kMaxShards)")
     out = _Shards(rows=sh.rows if sh is not None else blocks[0].shape[0])
     for i, blk in enumerate(blocks):
         if blk.device != dev:

@@ -27,7 +27,8 @@ device (compare_genomes(mesh=, shard_index_rows=True)).
 Writes {out}/result.json, the JAX tool's keys with the same meanings plus
 device, table_layout_s, device_table_gib, the stage seconds (seed_s,
 chain_s, align_s, output_s, variants_s), the align's spans (span_s:
-compare_genomes' timeline, the time outside the stages included) and the
+compare_genomes' timeline, the time outside the stages included), the seed
+kernels' launches during the align (kernel_launches) and the
 host memory phase by phase (memory: peak and current resident bytes and
 their bytes a text row, SA-IS's levels included), and {out}/out.maf,
 {out}/out.vcf. The build needs about 12.5 bytes of host memory a text row
@@ -204,15 +205,73 @@ def lay_out_tables(fm, device, result: dict, mem: Memory) -> None:
         f"{result['device_table_gib']} GiB; host rank planes freed")
 
 
+# the seed kernels' launch counters that align() reports (kernel_launches):
+# each wrapper's whole-table and row-sharded (ShardedTable) instances
+LAUNCH_COUNTERS = {"seed_scan": ("seed_scan", "launches"),
+                   "seed_scan_sharded": ("seed_scan", "sharded_launches"),
+                   "resolve_sa": ("resolve_sa", "launches"),
+                   "resolve_sa_sharded": ("resolve_sa", "sharded_launches")}
+
+
+def align(fm, records, device, entries: int, out: str) -> dict:
+    """compare_genomes of `records` into {out}/out.maf and {out}/out.vcf:
+    on whole tables (entries 1), or with the index's t3 and sa_samples rows
+    cut over a mesh of `entries` entries of `device`
+    (compare_genomes(mesh=, shard_index_rows=True)). Returns the align's
+    result.json keys: mesh_devices, align_wall_s, query_bp, the counts,
+    span_s and the stage seconds, max_text_rpos, int64_coords_seen, and
+    kernel_launches, each seed kernel instance's launches during the align
+    (on the CPU the wrappers run their plain versions and count none)."""
+    import torch
+    from gsalign_tpu_torch.config import AlignConfig
+    from gsalign_tpu_torch.ops import seed_cuda
+    from gsalign_tpu_torch.parallel.mesh import make_mesh
+    from gsalign_tpu_torch.pipeline.align import compare_genomes
+
+    def launches():
+        return {name: getattr(getattr(seed_cuda, fn), field)
+                for name, (fn, field) in LAUNCH_COUNTERS.items()}
+    mesh = make_mesh([device] * entries) if entries > 1 else None
+    before = launches()
+    t0 = time.time()
+    stats, collector, results = compare_genomes(
+        fm, records, AlignConfig(), output_prefix=os.path.join(out, "out"),
+        verbose=True, device=device, mesh=mesh,
+        shard_index_rows=mesh is not None)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    res = {
+        "mesh_devices": entries,
+        "align_wall_s": round(time.time() - t0, 1),
+        "query_bp": sum(len(q) for _, q in records),
+        "ani_pct": round(stats.ani, 2),
+        "alignments": stats.local_alignment_num,
+        "aligned_bp": stats.total_alignment_length,
+        "snv": collector.n_snv, "ins": collector.n_ins,
+        "dele": collector.n_del,
+        "kernel_launches": {k: v - before[k]
+                            for k, v in launches().items()},
+    }
+    res["span_s"] = {k: round(v, 3) for k, v in stats.span_times.items()}
+    for k in STAGES:
+        res[f"{k}_s"] = round(stats.stage_times.get(k, 0.0), 3)
+    # int64-coordinate evidence: the end of the last pair of a block on
+    # the RC strand lies past 2^31 at full scale
+    max_rpos = 0
+    for r in results:
+        for blk in r.blocks:
+            if blk.n:
+                max_rpos = max(max_rpos, int(blk.r_pos[-1] + blk.r_len[-1]))
+    res["max_text_rpos"] = max_rpos
+    res["int64_coords_seen"] = bool(max_rpos >= (1 << 31))
+    return res
+
+
 def run(args):
     """The tool on parsed arguments; returns (result.json's contents, the
     FMIndex, whose device tables DeviceFMIndex.from_host(fm, device) still
     returns)."""
-    import torch
-    from gsalign_tpu_torch.config import AlignConfig
     from gsalign_tpu_torch.index.io import load_index, save_index
-    from gsalign_tpu_torch.parallel.mesh import make_mesh
-    from gsalign_tpu_torch.pipeline.align import compare_genomes
     from gsalign_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(None if args.device == "cuda" else args.device)
@@ -261,38 +320,9 @@ def run(args):
     # the build's and the layout's peaks are read; a sampling thread
     # would take the interpreter lock during the timed align
     mem.peaks.stop()
-    mesh = make_mesh([device] * entries) if entries > 1 else None
-    result["mesh_devices"] = entries
-    t0 = time.time()
-    stats, collector, results = compare_genomes(
-        fm, records, AlignConfig(), output_prefix=os.path.join(args.out, "out"),
-        verbose=True, device=device, mesh=mesh,
-        shard_index_rows=mesh is not None)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    result.update(align(fm, records, device, entries, args.out))
     mem.mark("align")
-    result.update({
-        "align_wall_s": round(time.time() - t0, 1),
-        "query_bp": 3 * args.slice_len,
-        "ani_pct": round(stats.ani, 2),
-        "alignments": stats.local_alignment_num,
-        "aligned_bp": stats.total_alignment_length,
-        "snv": collector.n_snv, "ins": collector.n_ins,
-        "dele": collector.n_del,
-        "peak_rss_gb": mem.peak_gb(),
-    })
-    result["span_s"] = {k: round(v, 3) for k, v in stats.span_times.items()}
-    for k in STAGES:
-        result[f"{k}_s"] = round(stats.stage_times.get(k, 0.0), 3)
-    # int64-coordinate evidence: the end of the last pair of a block on
-    # the RC strand lies past 2^31 at full scale
-    max_rpos = 0
-    for res in results:
-        for blk in res.blocks:
-            if blk.n:
-                max_rpos = max(max_rpos, int(blk.r_pos[-1] + blk.r_len[-1]))
-    result["max_text_rpos"] = max_rpos
-    result["int64_coords_seen"] = bool(max_rpos >= (1 << 31))
+    result["peak_rss_gb"] = mem.peak_gb()
     result["memory"] = mem.phases
     result["memory_resets"] = mem.peaks.resets
     with open(os.path.join(args.out, "result.json"), "w") as fh:

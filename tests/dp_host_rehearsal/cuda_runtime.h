@@ -30,6 +30,7 @@
 #define __forceinline__ inline
 #define __align__(n)
 #define __launch_bounds__(n)
+#define __grid_constant__
 using std::max;
 using std::min;
 struct dim3 { unsigned x = 1, y = 1, z = 1; dim3() {} dim3(unsigned a) : x(a) {} };

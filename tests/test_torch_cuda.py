@@ -587,18 +587,23 @@ def four_entries(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("entries", [4, 16])
 @pytest.mark.parametrize("wide", [False, True])
-def test_row_sharded_kernels_match_plain_on_card(card, monkeypatch, wide):
+def test_row_sharded_kernels_match_plain_on_card(card, monkeypatch, wide,
+                                                 entries):
     """The ShardedTable instances of seed_scan and resolve_sa on an sa_intv
-    8 index cut into 4 row blocks on the card: equal to the plain versions
-    on the whole tables (resolve_sa at every rank, so at every block edge),
-    each launch counted as the sharded instance's."""
+    8 index cut into 4 and into 16 row blocks (entries of the one card; 16
+    is past the 8 blocks the kernels once took): equal to the plain
+    versions on the whole tables (resolve_sa at every rank, so at every
+    block edge), each launch counted as the sharded instance's."""
     from gsalign_tpu_torch.parallel import mesh as mesh_lib
     monkeypatch.delenv("GSALIGN_SA_MODE", raising=False)
     g, queries = genome_and_queries(91)
     dfm = rank.DeviceFMIndex.from_host(
         build_fmindex(g, sa_intv=8, force_wide=wide), card)
-    cut = mesh_lib.shard_index_rows(dfm, four_entries(card))
+    cut = mesh_lib.shard_index_rows(dfm,
+                                    mesh_lib.make_mesh([card] * entries))
+    assert len(cut.row_shards["t3"].blocks) == entries
     for q_rows, starts, stops, prm in scan_cases(
             dfm, queries, min_seed_length=12, chunk=300, max_out_cap=4):
         n0 = (seed_cuda.seed_scan.launches,

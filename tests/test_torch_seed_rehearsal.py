@@ -244,27 +244,29 @@ def boundary_ranks(dfm, rows: int, n: int) -> torch.Tensor:
                                     dfm.seq_len))
 
 
+@pytest.mark.parametrize("blocks", [3, 16])
 @pytest.mark.parametrize("kernel,wide", [
     ("resolve_sa", False), ("resolve_sa", True), ("seed_scan", False),
     ("seed_scan", True), ("seed_lockstep", False)])
 def test_row_sharded_tables_on_host_threads(host_lib, pair, case, sampled,
-                                            kernel, wide):
-    """The kernels' ShardedTable instances on tables cut in 3
-    (parallel/mesh.shard_index_rows over three CPU entries): resolve_sa
-    from the first and last rank of every block, and others, against the
-    plain walk over the whole tables, and the scans against the plain scan
-    on the whole tables (seed_scan on
-    the sampled indexes; seed_lockstep in pallas mode on the full-SA index,
-    whose narrow rows are the only ones it takes cut)."""
+                                            kernel, wide, blocks):
+    """The kernels' ShardedTable instances on tables cut in 3 and in 16
+    (parallel/mesh.shard_index_rows over that many CPU entries; 16 is past
+    the 8 blocks the kernels once took): resolve_sa from the first and
+    last rank of every block, and others, against the plain walk over the
+    whole tables, and the scans against the plain scan on the whole tables
+    (seed_scan on the sampled indexes; seed_lockstep in pallas mode on the
+    full-SA index, whose narrow rows are the only ones it takes cut)."""
     from gsalign_tpu_torch.parallel import mesh as mesh_lib
-    mesh = mesh_lib.make_mesh(["cpu"] * 3)
+    mesh = mesh_lib.make_mesh(["cpu"] * blocks)
     whole = case[0] if kernel == "seed_lockstep" else sampled[wide]
     cut = mesh_lib.shard_index_rows(whole, mesh)
     rows = cut.row_shards["t3"].rows
-    assert cut.t3.shape[0] == 0 and len(cut.row_shards["t3"].blocks) == 3
+    assert cut.t3.shape[0] == 0 and \
+        len(cut.row_shards["t3"].blocks) == blocks
     if kernel == "resolve_sa":
         k = torch.cat([probe_ranks(whole, 40), boundary_ranks(whole, rows,
-                                                              3)])
+                                                              blocks)])
         out = torch.full_like(k, -1)
         args = seed_cuda._resolve_args(cut, k, out)
         assert args.t3_shards.rows == rows
@@ -289,3 +291,31 @@ def test_row_sharded_tables_on_host_threads(host_lib, pair, case, sampled,
                                       want.read_back()[0])
         assert torch.equal(got.out, want.out)
         assert want.read_back()[0][tseeding.F_OUT_N].sum() > 0
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_row_blocks_up_to_the_bound_on_host_threads(host_lib, sampled, wide):
+    """resolve_sa over seed_cuda.MAX_SHARDS row blocks (the argument
+    struct full: every block address in use, most blocks zero padding)
+    against the plain walk on the whole tables; one block more is refused
+    before any launch, with the bound named."""
+    from gsalign_tpu_torch.parallel import mesh as mesh_lib
+    whole = sampled[wide]
+    n = seed_cuda.MAX_SHARDS
+    cut = mesh_lib.shard_index_rows(whole, mesh_lib.make_mesh(["cpu"] * n))
+    # every 64th block's edges and the last block that holds t3 rows (a
+    # thread a CUDA thread: keep the ranks few)
+    rows = cut.row_shards["t3"].rows
+    last = (whole.t3.shape[0] - 1) // rows
+    edges = boundary_ranks(whole, rows, last + 1).view(-1, 4)
+    k = torch.cat([probe_ranks(whole, 24),
+                   edges[list(range(0, last, 64)) + [last]].reshape(-1)])
+    out = torch.full_like(k, -1)
+    args = seed_cuda._resolve_args(cut, k, out)
+    assert args.sa_shards.block[n - 1] is not None
+    assert host_lib.gsalign_resolve_sa(ctypes.byref(args), None) == 0
+    assert torch.equal(out, trank.resolve_sa(whole, k))
+    over = mesh_lib.shard_index_rows(whole,
+                                     mesh_lib.make_mesh(["cpu"] * (n + 1)))
+    with pytest.raises(ValueError, match=f"at most MAX_SHARDS = {n}"):
+        seed_cuda._resolve_args(over, k, out)

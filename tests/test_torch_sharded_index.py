@@ -157,3 +157,26 @@ def test_row_sharded_pipeline_byte_identical(setup, tmp_path, monkeypatch,
         assert seen == [mesh]
     assert _outputs(cut) == _outputs(single)
     assert len(_outputs(single)[0]) > 1000
+
+
+def test_row_sharded_pipeline_over_16_entries(setup, tmp_path):
+    """compare_genomes over 16 CPU entries with shard_index_rows (twice the
+    8 blocks the card's kernels once took) writes the single-entry run's
+    MAF and VCF; t3 and sa_samples are cut into 16 blocks."""
+    from gsalign_tpu_torch.pipeline import align as align_mod
+    fm, dfm, _, qry, _ = setup
+    records = [("q", DNA[qry])]
+    cfg = dataclasses.replace(AlignConfig(), min_aln_block_score=50,
+                              min_seed_length=12, thread_num=1)
+    mesh = mesh_lib.make_mesh(["cpu"] * 16)
+    cut = mesh_lib.shard_index_rows(dfm, mesh)
+    assert [len(cut.row_shards[f].blocks) for f in mesh_lib.ROW_SHARD_FIELDS
+            ] == [16, 16]
+    single, rows = str(tmp_path / "single"), str(tmp_path / "rows16")
+    align_mod.compare_genomes(fm, records, cfg, output_prefix=single,
+                              verbose=False, device="cpu")
+    align_mod.compare_genomes(fm, records, cfg, output_prefix=rows,
+                              verbose=False, mesh=mesh,
+                              shard_index_rows=True)
+    assert _outputs(rows) == _outputs(single)
+    assert len(_outputs(single)[0]) > 1000
