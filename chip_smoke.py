@@ -7,6 +7,7 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py dp         # phases 1 and 2 only (the DP kernels)
     python3 chip_smoke.py dp-sweep   # those, and the DP launch plans timed
     python3 chip_smoke.py seed       # phases 1 and 6 (the seed kernels)
+    python3 chip_smoke.py segments   # phase 1 and 6b (speculative segments)
     python3 chip_smoke.py wide-big   # phase 1, then a 1.08 Gb wide index
                                      # (2N > 2^31): minutes, tens of GB
     python3 chip_smoke.py tools      # phase 1, the 4.6 Mb pair, phase 9
@@ -65,6 +66,15 @@ Phases (each raises on failure; nothing is caught):
      by iteration; seed_scan on the wide index; resolve_sa (16 threads a
      rank narrow, 32 wide) on every rank the 12 Mb sampled and wide runs
      resolve, against the full suffix array too;
+  6b. speculative seed segments (segment_runs): find_seeds_all at
+     n_segments 1, 4, 8 and 16, slack 600, on phase 6's indexes and queries
+     (4.6 Mb full-SA in xla mode and, through seed_lockstep, pallas mode;
+     12 Mb sa_intv=8, forced-wide, and sa_intv=8 in 4 row blocks), each
+     run's seeds equal to n_segments 1, and 4.6 Mb at slack 20, which must
+     poison lanes at their bounds; at 8 segments the first round's lanes
+     and a fixup round's through the kernel against the plain scan (lane
+     state, records, F_STEPS) and the first round's bound; one [segments]
+     line a run;
   7. the mesh (parallel/mesh.py) on the one card, four entries of it, a CUDA
      stream each: 4.6 Mb through compare_genomes with the seed lanes and the
      DP problems in four stripes, in xla mode and, in a process of its own
@@ -968,8 +978,8 @@ def rank_rows(dfm, device):
 
 def scan_work(dfm, q_rows, starts, stops, prm) -> dict:
     """The bytes and integer operations that the scan of these lanes (xla
-    or none mode) needs, each input read once and each output written
-    once. The plain scan runs once more, and before each step the table
+    or none mode; stops [B] or the bounds [3, B] of segment lanes) needs,
+    each input read once and each output written once. The plain scan runs once more, and before each step the table
     rows its live lanes are about to read are marked: an interval-extension
     step reads the t3 rows (and the major-checkpoint rows) of its two
     ranks, one row where both fall in one (a narrow index's 256-byte rows
@@ -978,13 +988,15 @@ def scan_work(dfm, q_rows, starts, stops, prm) -> dict:
     256-base segments of the text, and on entering one SA word; an INIT
     step reads one comb_pairs word (8 bytes a step, at most the table) and
     no rank row. Per lane besides: its query window (code and ambiguity
-    words), starts and stops in, the lane state out, its records out.
+    words), its start and three bounds in, the lane state out, its records
+    out.
     Returns {n_bytes, n_ops, steps, rank_steps, direct_steps, init_steps,
     table_bytes}."""
     import torch
     from gsalign_tpu_torch.ops import seeding as sd
     dev = q_rows.device
     lanes = sd.ScanLanes.start(starts, stops, prm.max_out, dev)
+    B = len(starts)
     t3, major = rank_rows(dfm, dev)
     text = Touched(-(-dfm.seq_len // 256) + 1, TEXT_SEG_BYTES, dev)
     n = torch.zeros(4, dtype=torch.int64, device=dev)  # rank, dir, init, sa
@@ -992,7 +1004,7 @@ def scan_work(dfm, q_rows, starts, stops, prm) -> dict:
     while lanes.max_len > 0:
         st = lanes.st
         ext = st[sd.F_PHASE] == sd.PHASE_EXT
-        init = ~ext & (st[sd.F_CURSOR] < lanes.stops)
+        init = ~ext & (st[sd.F_CURSOR] < lanes.emit_stops)
         in_dir = ext & (st[sd.F_IK2] == 1) if direct \
             else torch.zeros_like(ext)
         iv = ext & ~in_dir
@@ -1016,13 +1028,13 @@ def scan_work(dfm, q_rows, starts, stops, prm) -> dict:
     if steps != int(st[sd.F_STEPS].sum()):
         raise AssertionError("scan_work: the steps counted by kind are not "
                              "the steps the lanes took")
-    B = len(starts)
     comb = min(8 * init_steps,
                dfm.comb_pairs.numel() * dfm.comb_pairs.element_size())
     table_bytes = t3.bytes() + major.bytes() + text.bytes() \
         + 4 * sa_words + comb
     window = 2 * 4 * ((lanes.max_len >> 4) + 20)
-    n_bytes = table_bytes + B * (window + 2 * 8 + 8 * sd.N_FIELDS) \
+    # per lane in: its start and its emit, ext and hard bounds
+    n_bytes = table_bytes + B * (window + 4 * 8 + 8 * sd.N_FIELDS) \
         + 24 * int(st[sd.F_OUT_N].sum())
     return {"n_bytes": n_bytes, "table_bytes": table_bytes,
             "n_ops": 2 * RANK_OPS * rank_steps + STEP_OPS * steps,
@@ -1400,6 +1412,158 @@ def resolve_check(tag: str, dfm, queries, full_sa=None) -> dict:
         f"{steps * RANK_OPS} operations)  equal to the plain version"
         + ("" if full_sa is None else " and to the full SA"))
     return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, **bnd}
+
+
+SEGMENTS = (1, 4, 8, 16)     # n_segments of the segments phase
+SEG_SLACK = 600              # its slack (the JAX package's default)
+SEG_CHECKED = 8              # the n_segments held against the plain scan
+
+
+def segment_lanes_check(tag: str, dfm, rnd, kernel, plain_of=None) -> dict:
+    """The kernel (seed_scan, or seed_lockstep in pallas mode) on one scan
+    round's lanes (find_seeds_all's rounds entry) against the plain scan of
+    the same lanes on `plain_of` (dfm's whole tables; dfm itself for None):
+    equal lane state (exits, poison, F_STEPS), records and, in the lock
+    step, counters; the plain scan timed on the host clock after a
+    synchronise. Returns {plain_ms, lanes (the plain scan's), max_abs_err}."""
+    from gsalign_tpu_torch.ops import seed_cuda, seeding
+    q_rows, starts, bounds, prm, _, _ = rnd
+    args = (q_rows, starts, bounds, prm)
+    p_lanes = fresh_lanes(args)
+    plain_ms = timed(lambda: seeding.scan_lockstep(
+        plain_of or dfm, q_rows, p_lanes, prm, plain=True))[1]
+    lanes = fresh_lanes(args)
+    getattr(seed_cuda, kernel)(dfm, q_rows, lanes, prm)
+    # the lock step's counters too (seed_scan fills none)
+    key = "buf" if kernel == "seed_lockstep" else "st"
+    err = max(int((getattr(lanes, key) - getattr(p_lanes, key)).abs().max()),
+              int((lanes.out - p_lanes.out).abs().max()))
+    if err:
+        raise AssertionError(f"{kernel} {tag}: segment lanes differ from the "
+                             f"plain scan (max |diff| {err})")
+    return {"plain_ms": plain_ms, "lanes": p_lanes, "max_abs_err": err}
+
+
+def segment_runs(tag: str, dfm, queries, sa_mode, slacks=None, base=None,
+                 whole=None) -> dict:
+    """find_seeds_all on `queries` at n_segments 1, 4, 8 and 16 (slack
+    SEG_SLACK, or n: slack of `slacks`), each run's seeds equal to the
+    n_segments=1 run's; one [segments] line a run. The kernel (seed_scan,
+    or seed_lockstep in pallas mode) is timed on each run's first round
+    (launch and state read-back, mean of 3, warm). At SEG_CHECKED segments
+    the first round's lanes and a fixup round's are held against the plain
+    scan (of `whole`'s tables where dfm is cut into row blocks) and the
+    first round's bound computed (scan_work; the bound of `base`, a result
+    of this function on the same lanes in xla mode, where given). Returns
+    {n_segments: {stats, ms, wall_s}, "kernel": {ms, plain_ms, max_abs_err,
+    bound_ms, bound_by, longest, lanes, steps}}."""
+    import torch
+    from gsalign_tpu_torch.ops import seed_cuda, seeding
+    kernel = "seed_lockstep" if sa_mode == "pallas" else "seed_scan"
+    wrapper = getattr(seed_cuda, kernel)
+    out, one = {}, None
+    runs = [(n, SEG_SLACK) for n in SEGMENTS] + list((slacks or {}).items())
+    with sa_mode_env(sa_mode):
+        for n, slack in runs:
+            stats, rounds = {}, []
+            torch.cuda.synchronize()
+            t0 = time.time()
+            seeds = seeding.find_seeds_all(dfm, queries, n_segments=n,
+                                           slack=slack, stats=stats,
+                                           rounds=rounds)
+            wall = time.time() - t0
+            if one is None:
+                one = seeds
+            elif any(not np.array_equal(a, b) for x, y in zip(seeds, one)
+                     for a, b in zip(x, y)):
+                raise AssertionError(f"segments {tag} n_segments={n} slack="
+                                     f"{slack}: seeds differ from "
+                                     f"n_segments=1")
+            rnd = rounds[0]
+            reps = []
+            for _ in range(3):
+                lanes = fresh_lanes(rnd[:4])
+                reps.append(timed(lambda: wrapper(dfm, rnd[0], lanes,
+                                                  rnd[3]))[1])
+            ms = sum(reps) / len(reps)
+            key = n if slack == SEG_SLACK else f"{n}/{slack}"
+            out[key] = {"stats": stats, "ms": ms, "wall_s": wall}
+            say(f"[segments] {tag} {rnd[3].sa_mode} n_segments={n} slack="
+                f"{slack}: "
+                f"{stats['scan_lanes']} lanes, poisoned at a bound "
+                f"{stats['poisoned_at_bound'][0]}, with a full buffer "
+                f"{stats['poisoned_full'][0]}; fixup rounds "
+                f"{len(stats['round_lanes']) - 1} of "
+                f"{stats['round_lanes'][1:]} lanes (poisoned "
+                f"{stats['poisoned_full'][1:]}); longest lane "
+                f"{stats['scan_iterations'][0]} steps (rounds "
+                f"{stats['scan_iterations']}); round 1 {kernel} {ms:.3f} ms "
+                f"({', '.join(f'{r:.3f}' for r in reps)}); host "
+                f"reconciliation {stats.get('host_s', 0.0):.4f} s; "
+                f"find_seeds_all {wall:.3f} s; seeds equal to n_segments=1")
+            if n != SEG_CHECKED or slack != SEG_SLACK:
+                continue
+            chk = segment_lanes_check(tag, dfm, rnd, kernel, whole)
+            if len(rounds) > 1:
+                segment_lanes_check(f"{tag} fixup", dfm, rounds[1], kernel,
+                                    whole)
+            if base is None:
+                work = scan_work(whole or dfm, *rnd[:4])
+                bnd = bound(work["n_bytes"], work["n_ops"])
+            else:
+                bnd = base["kernel"]
+            st = chk["lanes"].st.cpu().numpy()
+            out["kernel"] = {
+                "ms": ms, "plain_ms": chk["plain_ms"],
+                "max_abs_err": chk["max_abs_err"],
+                "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"],
+                "lanes": len(rnd[1]),
+                "steps": int(st[seeding.F_STEPS].sum()),
+                "longest": int(st[seeding.F_STEPS].max())}
+            say(f"[kernel] {kernel} {tag} {rnd[3].sa_mode} segments "
+                f"(n_segments={n}, slack={slack}): {len(rnd[1])} lanes, "
+                f"{out['kernel']['steps']} steps, longest "
+                f"{out['kernel']['longest']}  kernel {ms:.3f} ms  plain "
+                f"{chk['plain_ms']:.1f} ms  bound {bnd['bound_ms']:.5f} ms "
+                f"({bnd['bound_by']})  equal, and a fixup round's "
+                f"{len(rounds[1][1]) if len(rounds) > 1 else 0} lanes equal")
+    return out
+
+
+def phase_segments(card: str) -> dict:
+    """Speculative seed segments on the card (find_seeds_all n_segments 1,
+    4, 8, 16, slack SEG_SLACK; segment_runs) on the indexes and queries of
+    phase 6: 4.6 Mb full-SA in xla mode (seed_scan; and slack 20 at 8
+    segments, which must poison lanes at their bounds) and in pallas mode
+    (seed_lockstep), 12 Mb sa_intv=8, 12 Mb forced-wide, and 12 Mb
+    sa_intv=8 with t3 and sa_samples in MESH_ENTRIES row blocks of the
+    card. Returns {tag: segment_runs result}."""
+    import torch
+    from gsalign_tpu_torch.parallel.mesh import make_mesh, shard_index_rows
+    for tag, idx in (("4.6mb", "idx"), ("12mb-sa8", "idx8"),
+                     ("12mb-wide", "idxw")):
+        if tag not in CASES:
+            CASES[tag] = load_case(tag.split("-")[0], idx)
+    dfm46, q46 = CASES["4.6mb"][:2]
+    dfm8, q8 = CASES["12mb-sa8"][:2]
+    dfmw, qw = CASES["12mb-wide"][:2]
+    out = {"4.6mb": segment_runs("4.6mb", dfm46, q46, "xla",
+                                 slacks={SEG_CHECKED: 20})}
+    clipped = out["4.6mb"][f"{SEG_CHECKED}/20"]["stats"]
+    if clipped["poisoned_at_bound"][0] <= 0:
+        raise AssertionError("segments 4.6mb slack 20: no lane poisoned at "
+                             "its bound")
+    out["4.6mb-pallas"] = segment_runs("4.6mb", dfm46, q46, "pallas",
+                                       base=out["4.6mb"])
+    out["12mb-sa8"] = segment_runs("12mb-sa8", dfm8, q8, None)
+    out["12mb-wide"] = segment_runs("12mb-wide", dfmw, qw, None)
+    cut = shard_index_rows(dfm8, make_mesh([torch.device("cuda")]
+                                           * MESH_ENTRIES))
+    out["12mb-sa8-rows"] = segment_runs(
+        f"12mb-sa8-rows ({MESH_ENTRIES} blocks)", cut, q8, None,
+        base=out["12mb-sa8"], whole=dfm8)
+    say(f"[segments] card: {card}")
+    return out
 
 
 MESH_ENTRIES = 4     # the card four times, a stream each (parallel/mesh.py)
@@ -2551,16 +2715,20 @@ def main() -> int:
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
         return 0
-    if sys.argv[1:] == ["seed"]:
-        # the seed-stage kernels alone: build, the 4.6 Mb and 12 Mb data
-        # and indexes, kernel against plain. No result lines.
+    if sys.argv[1:] in (["seed"], ["segments"]):
+        # the seed-stage kernels alone, or the segments phase alone: build,
+        # the 4.6 Mb and 12 Mb data and indexes, kernel against plain. No
+        # result lines.
         try:
-            phase_card()
+            card = phase_card()
             for tag, n in (("4.6mb", 4_600_000), ("12mb", 12_000_000)):
                 run_cli("index", f"{make_data(tag, n)}/ref.fa",
                         f"{WORK}/{tag}/idx")
             sampled_indexes(f"{WORK}/12mb")
-            phase_seed_kernels()
+            if sys.argv[1] == "seed":
+                phase_seed_kernels()
+            else:
+                phase_segments(card)
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
         return 0
@@ -2580,6 +2748,7 @@ def main() -> int:
         runs.update(phase(phase_12mb))
         sa = phase(phase_suffix_array)
         totals.update(phase(phase_seed_kernels))
+        phase(phase_segments, card)
         mesh = phase(phase_mesh, card, runs)
         totals.update(mesh["kernels"])
         phase(phase_profile)

@@ -7,7 +7,10 @@
 //                  the TPU: every lane run to its end in ONE launch, a warp
 //                  per lane. Serves the "xla" and "none" SA modes, where a
 //                  lane's trajectory depends on its own state and the
-//                  read-only tables alone.
+//                  read-only tables alone. A lane has the JAX scan's three
+//                  bounds (emit, ext, hard: Span), so a speculative
+//                  segment's lane is poisoned where its extension is
+//                  clipped at its artificial bound.
 //   seed_lockstep <- the same loop taken iteration by iteration: every
 //                  lane takes one step an iteration, in lock step, and the
 //                  loop itself runs on the card, a warp per lane and one
@@ -159,8 +162,13 @@ struct SeedArgs {
   const i64* init_corr;    // [12], -1 padded
   const u32* text_rows;    // [n4, 128] (direct indexes)
   const int32_t* sa_rows;  // [pad1024(seq_len + 1)] (direct indexes)
-  const i64* starts;       // [B]
-  const i64* stops;        // [B]
+  // [B] each: a lane scans starts from `starts` and records none from
+  // `emit_stops` on; an extension is clipped at `ext_stops`, which lies
+  // before the chunk's end `hard_stops` for a speculative segment's lane
+  const i64* starts;
+  const i64* emit_stops;
+  const i64* ext_stops;
+  const i64* hard_stops;
   i64* state;              // [12, B]
   i64* out;                // [B, max_out, 3]
   // seed_lockstep: [2, blocks] need | live << 32 of each block, by the
@@ -272,9 +280,19 @@ __device__ __forceinline__ void store_lane(const Lane& s, i64* st, i64 B,
   st[F_STEPS * B + b] = s.steps;
 }
 
-// A lane is live in EXT phase, or in INIT phase before its stop.
-__device__ __forceinline__ bool lane_live(const Lane& s, i64 stop) {
-  return s.phase == kPhaseExt || s.cursor < stop;
+// A lane's bounds (ops/seeding.ScanLanes): the JAX scan's starts,
+// emit_stops, ext_stops and hard_stops.
+struct Span {
+  i64 start, emit, ext, hard;
+};
+
+__device__ __forceinline__ Span lane_span(const SeedArgs& a, i64 b) {
+  return {a.starts[b], a.emit_stops[b], a.ext_stops[b], a.hard_stops[b]};
+}
+
+// A lane is live in EXT phase, or in INIT phase before its emit bound.
+__device__ __forceinline__ bool lane_live(const Lane& s, i64 emit) {
+  return s.phase == kPhaseExt || s.cursor < emit;
 }
 
 // 32-bit word j of the 2-bit fields starting at field offset `off` of a
@@ -609,21 +627,23 @@ struct WarpMem {
   }
 };
 
-// One step of a live lane b = [start, stop): the JAX scan body. Every
-// thread that runs it for a lane (the whole warp) holds the same Lane and
-// computes the same values; m.writer() names the thread that writes the
-// record.
+// One step of a live lane b of bounds sp: the JAX scan body. The INIT
+// jumps, the triples and both extensions stop at sp.ext; an extension
+// clipped there before the chunk's end (sp.ext < sp.hard) poisons the lane
+// from its start, as a full emit buffer does. Every thread that runs it
+// for a lane (the whole warp) holds the same Lane and computes the same
+// values; m.writer() names the thread that writes the record.
 template <class Mem>
 __device__ __forceinline__ void lane_step(Lane& s, const SeedArgs& a,
-                                          const Mem& m, i64 b, i64 start,
-                                          i64 stop) {
+                                          const Mem& m, i64 b,
+                                          const Span& sp) {
   const i64 phase = s.phase, cursor = s.cursor, ext_start = s.ext_start;
   const i64 ext_pos = s.ext_pos, ik1 = s.ik1, ik2 = s.ik2;
   const bool tri_failed = s.tri_failed, dir_set = s.dir_set;
   i64 dir_off = s.dir_off;
   const int order = static_cast<int>(a.order);
   const bool in_ext = phase == kPhaseExt;
-  const bool in_init = !in_ext;               // live, so cursor < stop
+  const bool in_init = !in_ext;               // live, so cursor < emit
   const bool in_dir = in_ext && a.mode != kModeNone && ik2 == 1;
   const bool iv_ext = in_ext && !in_dir;
 
@@ -647,13 +667,13 @@ __device__ __forceinline__ void lane_step(Lane& s, const SeedArgs& a,
 
   // ---- INIT class choice: INIT-order jump, else 8, 3, 1 ----
   const bool init_can12 = a.use_init && b1ok && (amb & init_mask) == 0 &&
-                          cursor + (order - 1) < stop;
-  const bool init_can8 = a.use8 && b1ok && real8 && cursor + 7 < stop &&
+                          cursor + (order - 1) < sp.ext;
+  const bool init_can8 = a.use8 && b1ok && real8 && cursor + 7 < sp.ext &&
                          !init_can12;
-  const bool init_can3 = b1ok && real3 && cursor + 2 < stop && !init_can8 &&
-                         !init_can12;
+  const bool init_can3 = b1ok && real3 && cursor + 2 < sp.ext &&
+                         !init_can8 && !init_can12;
   // ---- EXT class choice: triple when possible, else single ----
-  const bool can3 = iv_ext && ext_pos + 2 < stop && real3 && !tri_failed;
+  const bool can3 = iv_ext && ext_pos + 2 < sp.ext && real3 && !tri_failed;
   const int cls = can3 ? cls3 : cls1;
 
   const i64 i3 = kCombTail + cls3, i1 = kCombTail + 64 + (3 - cls1);
@@ -675,14 +695,17 @@ __device__ __forceinline__ void lane_step(Lane& s, const SeedArgs& a,
   // ---- interval EXT step ----
   i64 e_ik1 = 0, e_ik2 = 0;
   bool fin_iv = false, tri_miss = false, ext_ok = false;
+  // the extension reached sp.ext (JAX hb_eff: the interval path's
+  // hit_boundary, or in direct mode bound_dir)
+  bool at_bound = false;
   if (iv_ext) {
     i64 tk, tl;
     m.occ_pair(ik1, ik1 + ik2, can3, cls, tk, tl);
     e_ik1 = sel_a + tk;
     e_ik2 = tl - tk;
-    const bool hit_boundary = ext_pos >= stop;
+    at_bound = ext_pos >= sp.ext;
     const bool dead_end = e_ik2 == 0 && !can3;
-    fin_iv = hit_boundary || !b1ok || dead_end;
+    fin_iv = at_bound || !b1ok || dead_end;
     tri_miss = can3 && e_ik2 == 0;
     ext_ok = !fin_iv && !tri_miss;
   }
@@ -712,17 +735,17 @@ __device__ __forceinline__ void lane_step(Lane& s, const SeedArgs& a,
       const i64 jrow = p_safe >> 8;
       const u32* trow = a.text_rows + (jrow >> 2) * 128 + (jrow & 3) * 32;
       const int run = m.run256(trow, static_cast<int>(p_safe & 255), look);
-      const i64 lim_q = stop - ext_pos;
+      const i64 lim_q = sp.ext - ext_pos;
       const i64 lim_t = a.seq_len - p;
       const i64 limit = min(min(lim_q, lim_t), static_cast<i64>(256));
       const i64 adv = min(static_cast<i64>(run), max(limit, static_cast<i64>(0)));
       const bool reach = run >= limit;
       // boundary (checked first, like the interval path) > text-end dead
       // end > plain continue at a full 256-base window
-      const bool bound_dir = reach && lim_q <= min(lim_t, static_cast<i64>(256));
-      const bool tdead_dir = reach && !bound_dir && lim_t <= 256;
-      const bool cont_dir = reach && !bound_dir && !tdead_dir;
-      fin_dir = !reach || bound_dir || tdead_dir;
+      at_bound = reach && lim_q <= min(lim_t, static_cast<i64>(256));
+      const bool tdead_dir = reach && !at_bound && lim_t <= 256;
+      const bool cont_dir = reach && !at_bound && !tdead_dir;
+      fin_dir = !reach || at_bound || tdead_dir;
       dir_adv = cont_dir;
       dir_ext_pos = ext_pos + adv;
     }
@@ -736,13 +759,18 @@ __device__ __forceinline__ void lane_step(Lane& s, const SeedArgs& a,
                       freq <= a.max_seed_freq;
   const i64 advance = is_hit ? ext_start + (a.sensitive ? 5 : length + 1)
                              : ext_start + 1;
-  // a full emit buffer poisons the lane: it retires here and a later round
-  // re-scans it from this start position
+  // an extension clipped at an artificial bound (a speculative segment's,
+  // not the chunk's end) poisons the lane, as a full emit buffer does: from
+  // this start position on its results are unknowable or unrecorded, so it
+  // retires here and the host re-scans from the poison position with the
+  // real clip and a fresh buffer. A clipped hit is still recorded; the host
+  // drops records from the poison position on.
   const bool overflow = is_hit && s.out_n >= a.max_out;
+  const bool poisoned = (finalize && at_bound && sp.ext < sp.hard) || overflow;
   if (is_hit && !overflow) {
     if (m.writer()) {
       i64* rec = a.out + (b * a.max_out + s.out_n) * 3;
-      rec[0] = (ext_start - start) | (length << 16);
+      rec[0] = (ext_start - sp.start) | (length << 16);
       // direct hits know their occurrence: k0 < 0 encodes -(r_start + 1)
       rec[1] = in_dir ? -(dir_off + ext_start) - 1 : ik1;
       rec[2] = min(freq, a.max_seed_freq + 1);
@@ -751,11 +779,11 @@ __device__ __forceinline__ void lane_step(Lane& s, const SeedArgs& a,
   }
 
   // ---- state updates ----
-  s.cursor = overflow ? stop
+  s.cursor = poisoned ? sp.emit
              : ((in_init && !b1ok) || init_dead) ? cursor + 1
              : finalize ? advance
                         : cursor;
-  if (overflow && s.poison == kPoisonNone) s.poison = ext_start;
+  if (poisoned && s.poison == kPoisonNone) s.poison = ext_start;
   s.ext_pos = start_ext ? cursor + init_jump
               : ext_ok  ? ext_pos + (can3 ? 3 : 1)
               : dir_adv ? dir_ext_pos
@@ -830,21 +858,21 @@ seed_scan_kernel(const __grid_constant__ SeedArgs a) {
   const int warp = threadIdx.x >> 5, t = threadIdx.x & 31;
   const i64 b = static_cast<i64>(blockIdx.x) * kScanWarps + warp;
   if (b >= a.B) return;
-  const i64 start = a.starts[b], stop = a.stops[b];
+  const Span sp = lane_span(a, b);
   u32* win = reinterpret_cast<u32*>(shared64 + Heads<Rows>::kScanHead) +
              static_cast<i64>(warp) * 2 * a.win_words;
-  const i64 base = stage_window(a, win, start, t);
+  const i64 base = stage_window(a, win, sp.start, t);
 
   const WarpMem<true, Rows, Table> m{a, tb.comb_tail, tb.corr, tb.exc_pos,
                                      tb.exc_chr, win, base, t, false, 0};
   Lane s;
   load_lane(s, a.state, a.B, b);
-  while (lane_live(s, stop)) {
+  while (lane_live(s, sp.emit)) {
     if (s.steps >= a.step_cap) {
       s.steps = -1;
       break;
     }
-    lane_step(s, a, m, b, start, stop);
+    lane_step(s, a, m, b, sp);
   }
   if (t == 0) store_lane(s, a.state, a.B, b);
 }
@@ -862,9 +890,9 @@ __device__ __forceinline__ bool lane_needs_sa(const Lane& s) {
 // stall: their step moves nothing and is counted all the same.
 template <class Mem>
 __device__ __forceinline__ void lockstep_lane(Lane& s, const SeedArgs& a,
-                                              Mem& m, i64 b,
-                                              i64 start, i64 stop, i64& pos,
-                                              i64& gathered, i64& stalled) {
+                                              Mem& m, i64 b, const Span& sp,
+                                              i64& pos, i64& gathered,
+                                              i64& stalled) {
   m.sa_ok = false;
   m.sa_word = 0;
   if (a.mode == kModePallas && lane_needs_sa(s)) {
@@ -876,7 +904,7 @@ __device__ __forceinline__ void lockstep_lane(Lane& s, const SeedArgs& a,
     stalled += !m.sa_ok;
     ++pos;
   }
-  lane_step(s, a, m, b, start, stop);
+  lane_step(s, a, m, b, sp);
 }
 
 // The whole lock-step scan: every lane one step an iteration until none is
@@ -914,24 +942,23 @@ seed_lockstep_kernel(const __grid_constant__ SeedArgs a) {
   WarpMem<kStaged, Rows, Table> m{a, tb.comb_tail, tb.corr, tb.exc_pos,
                                   tb.exc_chr, nullptr, 0, t, false, 0};
   Lane s;                          // kStaged: this warp's one lane
-  i64 start = 0, stop = 0;
+  Span sp{};                       // kStaged: its bounds
   u32 need = 0, live = 0;          // this warp's lanes, for the next step
   if (kStaged) {
     if (lo < hi) {
-      start = a.starts[lo];
-      stop = a.stops[lo];
+      sp = lane_span(a, lo);
       u32* win = reinterpret_cast<u32*>(shared64 + Heads<Rows>::kLockHead) +
                  static_cast<i64>(warp) * 2 * a.win_words;
-      m.base = stage_window(a, win, start, t);
+      m.base = stage_window(a, win, sp.start, t);
       m.win = win;
       load_lane(s, a.state, a.B, lo);
-      live = lane_live(s, stop);
+      live = lane_live(s, sp.emit);
       need = pallas && lane_needs_sa(s);
     }
   } else {
     for (i64 b = lo; b < hi; ++b) {
       load_lane(s, a.state, a.B, b);
-      live += lane_live(s, a.stops[b]);
+      live += lane_live(s, a.emit_stops[b]);
       need += pallas && lane_needs_sa(s);
     }
   }
@@ -969,22 +996,22 @@ seed_lockstep_kernel(const __grid_constant__ SeedArgs a) {
 
     if (kStaged) {
       if (live) {
-        lockstep_lane(s, a, m, lo, start, stop, pos, gathered, stalled);
-        live = lane_live(s, stop);
+        lockstep_lane(s, a, m, lo, sp, pos, gathered, stalled);
+        live = lane_live(s, sp.emit);
         need = pallas && lane_needs_sa(s);
       }
     } else {
       need = live = 0;
       for (i64 b = lo; b < hi; ++b) {
         load_lane(s, a.state, a.B, b);
-        stop = a.stops[b];
-        if (!lane_live(s, stop)) continue;      // a finished lane is inert
-        lockstep_lane(s, a, m, b, a.starts[b], stop, pos, gathered, stalled);
+        const Span lane_sp = lane_span(a, b);
+        if (!lane_live(s, lane_sp.emit)) continue;   // a finished lane is inert
+        lockstep_lane(s, a, m, b, lane_sp, pos, gathered, stalled);
         // the threads of a warp are not in step: every one has loaded this
         // lane's state before thread 0 overwrites it
         __syncwarp();
         if (t == 0) store_lane(s, a.state, a.B, b);
-        live += lane_live(s, stop);
+        live += lane_live(s, lane_sp.emit);
         need += pallas && lane_needs_sa(s);
       }
     }

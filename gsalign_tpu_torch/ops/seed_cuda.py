@@ -65,8 +65,9 @@ class _SeedArgs(ctypes.Structure):
     """csrc/seed.cu SeedArgs, field for field."""
     _fields_ = [(n, _vp) for n in (
         "q_rows", "t3", "t3_major", "t3_exc_pos", "t3_exc_chr",
-        "comb_pairs", "init_corr", "text_rows", "sa_rows", "starts", "stops",
-        "state", "out", "block_counts", "counters")] + [(n, _ll) for n in (
+        "comb_pairs", "init_corr", "text_rows", "sa_rows", "starts",
+        "emit_stops", "ext_stops", "hard_stops", "state", "out",
+        "block_counts", "counters")] + [(n, _ll) for n in (
             "B", "max_out", "min_seed_length", "max_seed_freq", "sensitive",
             "order", "use_init", "use8", "seq_len", "n_look", "mode",
             "win_words", "step_cap", "gather_k", "max_iters", "blocks",
@@ -167,7 +168,7 @@ def _seed_args(dfm, q_rows, lanes, prm, win_words=0, step_cap=0,
     B = lanes.st.shape[1]
     if lanes.st.shape != (seeding.N_FIELDS, B) or \
             lanes.out.shape != (B, prm.max_out, 3) or \
-            lanes.starts.shape != (B,) or lanes.stops.shape != (B,) or \
+            lanes.starts.shape != (B,) or lanes.bounds.shape != (3, B) or \
             lanes.counters.shape != (seeding.N_COUNTERS,) or \
             (block_counts is not None and block_counts.shape
              != (2 * lockstep["blocks"] + 1,)):
@@ -191,7 +192,9 @@ def _seed_args(dfm, q_rows, lanes, prm, win_words=0, step_cap=0,
         if direct else None,
         sa_rows=_ptr(dfm.sa_rows, i32, dev, "sa_rows") if direct else None,
         starts=_ptr(lanes.starts, i64, dev, "starts"),
-        stops=_ptr(lanes.stops, i64, dev, "stops"),
+        emit_stops=_ptr(lanes.emit_stops, i64, dev, "emit_stops"),
+        ext_stops=_ptr(lanes.ext_stops, i64, dev, "ext_stops"),
+        hard_stops=_ptr(lanes.hard_stops, i64, dev, "hard_stops"),
         state=_ptr(lanes.st, i64, dev, "state"),
         out=_ptr(lanes.out, i64, dev, "out"),
         block_counts=_ptr(block_counts, i64, dev, "block_counts"),
@@ -199,7 +202,7 @@ def _seed_args(dfm, q_rows, lanes, prm, win_words=0, step_cap=0,
         B=B, max_out=prm.max_out, min_seed_length=prm.min_seed_length,
         max_seed_freq=prm.max_seed_freq, sensitive=int(prm.sensitive),
         order=dfm.init_order,
-        use_init=int(prm.min_seed_length > dfm.init_order),
+        use_init=int(prm.min_seed_length > dfm.init_order and prm.init12),
         use8=int(prm.min_seed_length > 8), seq_len=dfm.seq_len,
         n_look=q_rows.shape[0] * 256, mode=mode,
         win_words=win_words, step_cap=step_cap, wide=int(dfm.wide),
@@ -225,22 +228,30 @@ def _scan_head_bytes(wide: bool) -> int:
 
 
 def _win_words(max_len: int) -> int:
-    """32-bit words a plane of a staged query window: a lane reads from its
-    start's word to 16 words of compare and one of shift past its stop's
-    word."""
+    """32-bit words a plane of a staged query window of a lane whose
+    extensions stop max_len bases past its start (its ext bound): a lane
+    reads from its start's word to 16 words of compare and one of shift
+    past its ext bound's word."""
     return (max_len >> 4) + 20
 
 
-def _step_cap(max_len: int) -> int:
-    """The most steps a lane of max_len bases can take, seed_scan's limit.
+def _step_cap(emit_len: int, ext_len: Optional[int] = None) -> int:
+    """The most steps a lane can take that scans starts over emit_len bases
+    from its start and extends to ext_len bases from it (ext_len >=
+    emit_len; None: ext_len = emit_len, one bound), seed_scan's limit.
     From a cursor c an extension is one INIT step, then EXT steps that each
-    move ext_pos forward (to at most the lane's stop), each preceded by at
+    move ext_pos forward (to at most the ext bound), each preceded by at
     most one triple miss that moves nothing, then one finalizing step, again
-    after at most one triple miss: at most 2 * (stop - c) + 3 steps, after
-    which the cursor stands at c + 1 or further. An INIT step that starts
-    no extension moves the cursor by one. Summed over every c of the lane:
-    max_len * (max_len + 1) + 3 * max_len."""
-    return max_len * (max_len + 4)
+    after at most one triple miss: at most 2 * (ext - c) + 3 steps, after
+    which the cursor stands at c + 1 or further, or at the emit bound where
+    the extension poisons the lane. An INIT step that starts no extension
+    moves the cursor by one. Summed over every c in [start, emit), E =
+    emit_len and X = ext_len: 2 X E - E (E - 1) + 3 E = E (2 X - E + 4),
+    which is X (X + 4) for one bound. It grows with X, and with E for E <=
+    X, so the longest emit and ext spans of a launch bound all its lanes."""
+    if ext_len is None:
+        ext_len = emit_len
+    return emit_len * (2 * ext_len - emit_len + 4)
 
 
 def seed_scan(dfm, q_rows: torch.Tensor, lanes, prm) -> np.ndarray:
@@ -267,11 +278,11 @@ def scan_launch(dfm, q_rows: torch.Tensor, lanes, prm) -> int:
     win_words = _win_words(lanes.max_len)
     shared = _scan_head_bytes(dfm.wide) + _SCAN_WARPS * 2 * win_words * 4
     if shared > _MAX_SHARED_BYTES:
-        raise ValueError(f"lanes of {lanes.max_len} bases need {shared} "
-                         f"bytes of shared memory a block; the card has "
-                         f"{_MAX_SHARED_BYTES}")
+        raise ValueError(f"lanes that extend {lanes.max_len} bases need "
+                         f"{shared} bytes of shared memory a block; the card "
+                         f"has {_MAX_SHARED_BYTES}")
     args = _seed_args(dfm, q_rows, lanes, prm, win_words=win_words,
-                      step_cap=_step_cap(lanes.max_len))
+                      step_cap=_step_cap(lanes.max_emit, lanes.max_len))
     if lanes.st.shape[1]:
         cuda_build.raise_on(build().gsalign_seed_scan(
             ctypes.byref(args), cuda_build.stream(dev)), "seed_scan")
@@ -365,8 +376,8 @@ def launch_lockstep(lib, stream, dfm, q_rows, lanes, prm, max_iters: int,
         resident_blocks(lib, -1, dfm.wide, **kw), max_blocks)
     K = min(seeding._SA_GATHER_K, B)
     # every iteration steps at least one lane, or the first K needy ones
-    cap = _step_cap(lanes.max_len) * (B if prm.sa_mode == "pallas" and B > K
-                                      else 1)
+    cap = _step_cap(lanes.max_emit, lanes.max_len) * (
+        B if prm.sa_mode == "pallas" and B > K else 1)
     # the blocks' counts, by the iteration's parity, and the grid barrier's
     # word, which starts at zero
     counts = torch.zeros(2 * blocks + 1, dtype=torch.int64,
@@ -407,7 +418,7 @@ def lockstep_launch(dfm, q_rows: torch.Tensor, lanes, prm, max_iters: int = 0,
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     lanes.counters.zero_()
-    if lanes.max_len > 0:
+    if lanes.max_emit > 0:
         launch_lockstep(build(), cuda_build.stream(dev), dfm, q_rows, lanes,
                         prm, max_iters, max_blocks)
         cuda_build.count(seed_lockstep, "sharded_launches" if sharded(dfm)

@@ -15,7 +15,7 @@ Lane state machine (exact emulation of IdentifyLocalMEM + BWT_Search):
         hit  -> emit (qPos, len, rank_start, freq); cursor = ext_start +
                 (sensitive ? 5 : len+1)
         miss -> cursor = ext_start + 1.
-Lane done when cursor >= stop in INIT phase.
+Lane done when cursor >= its emit bound in INIT phase.
 
 Shortcuts that keep the seed set exact (as in the JAX package):
   INIT jump: the interval of the first 10 (12 above 64 M text rows) or 8
@@ -58,10 +58,16 @@ comparisons on a card; nothing on a card's main path calls it.
 
 Both give every lane the same steps, so the same records, final state and
 per-lane step counts (F_STEPS), whose maximum is the lock-step loop's
-iteration count. The JAX package's speculative segments, halving-width
-lane cascade, power-of-two lane padding and its "xlak" and "pallas_interp"
-SA modes are not carried: one lane per chunk. A full emit buffer poisons
-its lane, which is re-scanned from the poison position in a further round.
+iteration count. A lane has three bounds, as in the JAX scan: it records
+starts up to its emit bound, its extensions stop at its ext bound, and the
+chunk's end is its hard bound. With one segment a chunk (the main path)
+all three are the chunk's end. With speculative segments (find_seeds_all
+n_segments > 1) a lane scans one segment and extends up to slack bases
+past it; an extension clipped there poisons the lane, as a full emit
+buffer does, and the host reconciles each chunk's path from the lanes'
+records and re-scans what it cannot join in further rounds. The JAX
+package's halving-width lane cascade, power-of-two lane padding and its
+"xlak" and "pallas_interp" SA modes are not carried.
 
 Over a mesh (parallel/mesh.py) a round's lanes are cut into contiguous
 stripes, one an entry, each scanned by its own launch on its entry's device
@@ -188,6 +194,25 @@ class ScanParams:
     sensitive: bool
     max_out: int
     sa_mode: str          # one of SA_MODES
+    init12: bool = True   # the INIT-order jump (JAX init12)
+
+
+def lane_bounds(starts, stops) -> np.ndarray:
+    """A scan's lane bounds as int64 [3, B] (rows emit, ext, hard): stops
+    int [B] is one bound for all three, int [3, B] gives them apart. A lane
+    records starts in [start, emit); an extension is clipped at ext, which
+    lies before the chunk's end hard for a speculative segment's lane.
+    Raises unless emit <= ext <= hard for every lane."""
+    starts = np.asarray(starts, dtype=np.int64)
+    b = np.asarray(stops, dtype=np.int64)
+    if b.ndim == 1:
+        b = np.broadcast_to(b, (3,) + b.shape)
+    if b.shape != (3, starts.shape[0]):
+        raise ValueError(f"lane bounds must be [B] or [3, B] for B = "
+                         f"{starts.shape[0]} lanes, got {b.shape}")
+    if ((b[0] > b[1]) | (b[1] > b[2])).any():
+        raise ValueError("lane bounds must keep emit <= ext <= hard")
+    return np.ascontiguousarray(b)
 
 
 @dataclasses.dataclass
@@ -196,19 +221,34 @@ class ScanLanes:
     st and counters are views of one buffer, so that one copy reads both
     back (read_back)."""
     starts: torch.Tensor  # int64 [B]
-    stops: torch.Tensor   # int64 [B]
+    bounds: torch.Tensor  # int64 [3, B]: emit, ext, hard (lane_bounds)
     st: torch.Tensor      # int64 [N_FIELDS, B] lane state (F_* rows)
     out: torch.Tensor     # int64 [B, max_out, 3] records (meta, k0, freq)
     counters: torch.Tensor  # int64 [N_COUNTERS] (C_* rows)
     buf: torch.Tensor     # int64 [N_FIELDS * B + N_COUNTERS]: st | counters
-    max_len: int          # longest lane, max(stops - starts, 0), in bases
+    max_len: int          # longest extension, max(ext - starts, 0), bases
+    max_emit: int         # longest emit span, max(emit - starts, 0), bases
+
+    @property
+    def emit_stops(self) -> torch.Tensor:
+        return self.bounds[0]
+
+    @property
+    def ext_stops(self) -> torch.Tensor:
+        return self.bounds[1]
+
+    @property
+    def hard_stops(self) -> torch.Tensor:
+        return self.bounds[2]
 
     @staticmethod
     def start(starts: np.ndarray, stops: np.ndarray, max_out: int,
               device) -> "ScanLanes":
+        """New lanes [starts, stops): stops int [B] (emit = ext = hard) or
+        int [3, B] (lane_bounds)."""
         B = len(starts)
-        lens = np.asarray(stops, dtype=np.int64) \
-            - np.asarray(starts, dtype=np.int64)
+        bounds = lane_bounds(starts, stops)
+        spans = bounds[:2] - np.asarray(starts, dtype=np.int64)
         host = np.zeros(N_FIELDS * B + N_COUNTERS, dtype=np.int64)
         st = host[:N_FIELDS * B].reshape(N_FIELDS, B)
         st[F_CURSOR] = starts
@@ -220,12 +260,13 @@ class ScanLanes:
 
         buf = up(host)
         return ScanLanes(
-            starts=up(starts), stops=up(stops),
+            starts=up(starts), bounds=up(bounds),
             st=buf[:N_FIELDS * B].view(N_FIELDS, B),
             out=torch.zeros((B, max_out, 3), dtype=torch.int64,
                             device=device),
             counters=buf[N_FIELDS * B:], buf=buf,
-            max_len=max(0, int(lens.max())) if B else 0)
+            max_len=max(0, int(spans[1].max())) if B else 0,
+            max_emit=max(0, int(spans[0].max())) if B else 0)
 
     def read_back(self):
         """(lane state int64 [N_FIELDS, B], counters int64 [N_COUNTERS]) on
@@ -242,13 +283,18 @@ def seed_step_plain(dfm: DeviceFMIndex, q_rows: torch.Tensor,
     """One lock-step iteration of every lane, plain torch: updates
     lanes.st and lanes.out in place and returns the number of lanes still
     live (a 0-d tensor). In pallas mode slot (int64 [B], -1 for none) and
-    res_k (int32 [K]) carry the compacted SA reads (_sa_slots)."""
+    res_k (int32 [K]) carry the compacted SA reads (_sa_slots). A lane
+    records starts up to its emit bound; its INIT jumps, triples and
+    extensions stop at its ext bound, and an extension clipped there before
+    the chunk's end (ext < hard) poisons the lane (JAX seeding.py:446-490)."""
     i64 = torch.int64
     st = lanes.st
-    starts_t, stops_t = lanes.starts, lanes.stops
+    starts_t = lanes.starts
+    emit_t, ext_t, hard_t = lanes.emit_stops, lanes.ext_stops, \
+        lanes.hard_stops
     B = st.shape[1]
     order = dfm.init_order
-    use_init = prm.min_seed_length > order
+    use_init = prm.min_seed_length > order and prm.init12
     # INIT-8 is only emission-exact when any sub-8 match is a sure miss
     use8 = prm.min_seed_length > 8
     n_sa = dfm.seq_len + 1
@@ -264,7 +310,7 @@ def seed_step_plain(dfm: DeviceFMIndex, q_rows: torch.Tensor,
     tri_failed = st[F_TRI_FAILED] != 0
     dir_set = st[F_DIR_SET] != 0
 
-    in_init = (phase == PHASE_INIT) & (cursor < stops_t)
+    in_init = (phase == PHASE_INIT) & (cursor < emit_t)
     in_ext = phase == PHASE_EXT
     in_dir = in_ext & (ik2 == 1) if prm.sa_mode != "none" else no
     iv_ext = in_ext & ~in_dir
@@ -283,16 +329,16 @@ def seed_step_plain(dfm: DeviceFMIndex, q_rows: torch.Tensor,
     init_amb = ~b1ok
     if use_init:
         init_can12 = b1ok & ((amb_w & init_mask) == 0) \
-            & (cursor + (order - 1) < stops_t)
+            & (cursor + (order - 1) < ext_t)
     else:
         init_can12 = no
-    init_can8 = b1ok & real8 & (cursor + 7 < stops_t) & ~init_can12 \
+    init_can8 = b1ok & real8 & (cursor + 7 < ext_t) & ~init_can12 \
         if use8 else no
-    init_can3 = b1ok & real3 & (cursor + 2 < stops_t) \
+    init_can3 = b1ok & real3 & (cursor + 2 < ext_t) \
         & ~init_can8 & ~init_can12
 
     # ---- EXT class choice: triple (3 bases) when possible, else 1 ----
-    can3 = iv_ext & (ext_pos + 2 < stops_t) & real3 & ~tri_failed
+    can3 = iv_ext & (ext_pos + 2 < ext_t) & real3 & ~tri_failed
     cls = torch.where(can3, cls3, cls1)
 
     # one class row per lane; the INIT-order rows carry starts[g+1], so
@@ -336,7 +382,7 @@ def seed_step_plain(dfm: DeviceFMIndex, q_rows: torch.Tensor,
     tk, tl = cnt[:B], cnt[B:]
     e_ik1 = sel_a + tk
     e_ik2 = tl - tk
-    hit_boundary = ext_pos >= stops_t
+    hit_boundary = ext_pos >= ext_t
     dead_end = (e_ik2 == 0) & ~can3
     fin_iv = iv_ext & (hit_boundary | ~b1ok | dead_end)
     tri_miss = iv_ext & can3 & (e_ik2 == 0)
@@ -370,7 +416,7 @@ def seed_step_plain(dfm: DeviceFMIndex, q_rows: torch.Tensor,
         j16 = torch.arange(16, device=st.device)[None, :] * 16
         cand = torch.where(mm == 0, 4096, j16 + (_clz32(mm) >> 1))
         run = cand.min(1).values.clamp(max=256)
-        lim_q = stops_t - ext_pos
+        lim_q = ext_t - ext_pos
         lim_t = seq_len - p
         limit = torch.minimum(torch.minimum(lim_q, lim_t),
                               torch.full_like(lim_q, 256))
@@ -385,7 +431,7 @@ def seed_step_plain(dfm: DeviceFMIndex, q_rows: torch.Tensor,
         dir_adv = in_dir_eff & cont_dir
         dir_ext_pos = ext_pos + adv
     else:
-        in_dir_eff = fin_dir = dir_adv = no
+        in_dir_eff = fin_dir = dir_adv = bound_dir = no
         dir_ext_pos = ext_pos
 
     # ---- finalize ----
@@ -397,9 +443,12 @@ def seed_step_plain(dfm: DeviceFMIndex, q_rows: torch.Tensor,
     advance = torch.where(
         is_hit, ext_start + (5 if prm.sensitive else length + 1),
         ext_start + 1)
-    # a full emit buffer poisons the lane: it retires here and a later
-    # round re-scans it from this start position
+    # an extension clipped at an artificial bound (a speculative segment's,
+    # not the chunk's end) poisons the lane, as a full emit buffer does: it
+    # retires here and the host re-scans it from this start position
     overflow = is_hit & (out_n >= max_out)
+    poisoned = (finalize & torch.where(in_dir, bound_dir, hit_boundary)
+                & (ext_t < hard_t)) | overflow
     do_emit = is_hit & ~overflow
     # direct hits already know their occurrence: k0 < 0 encodes the
     # resolved text position -(r_start+1) instead of a rank
@@ -414,10 +463,10 @@ def seed_step_plain(dfm: DeviceFMIndex, q_rows: torch.Tensor,
 
     # ---- state updates ----
     new_cursor = torch.where(
-        overflow, stops_t,
+        poisoned, emit_t,
         torch.where((in_init & init_amb) | init_dead, cursor + 1,
                     torch.where(finalize, advance, cursor)))
-    new_poison = torch.where(overflow & (poison == POISON_NONE), ext_start,
+    new_poison = torch.where(poisoned & (poison == POISON_NONE), ext_start,
                              poison)
     new_ext_pos = torch.where(
         start_ext, cursor + init_jump,
@@ -436,7 +485,7 @@ def seed_step_plain(dfm: DeviceFMIndex, q_rows: torch.Tensor,
         (~reset & (in_dir_eff | dir_set)).to(i64),
         dir_off, out_n + do_emit.to(i64), new_poison,
         st[F_STEPS] + (in_init | in_ext).to(i64)]))
-    live = ((new_phase == PHASE_INIT) & (new_cursor < stops_t)) \
+    live = ((new_phase == PHASE_INIT) & (new_cursor < emit_t)) \
         | (new_phase == PHASE_EXT)
     return live.sum()
 
@@ -484,7 +533,7 @@ def scan_lockstep(dfm: DeviceFMIndex, q_rows: torch.Tensor,
     n_iter = 0
     lanes.counters.zero_()
     live = ((lanes.st[F_PHASE] == PHASE_EXT)
-            | (lanes.st[F_CURSOR] < lanes.stops)).sum()
+            | (lanes.st[F_CURSOR] < lanes.emit_stops)).sum()
     # reading the live count is the host loop's one sync an iteration
     while int(live) > 0 and (max_iters <= 0 or n_iter < max_iters):
         slot = res_k = None
@@ -551,13 +600,14 @@ def _scan_result(pending, prm, plain):
 
 def scan_lanes(dfm: DeviceFMIndex, q_rows: torch.Tensor, starts: np.ndarray,
                stops: np.ndarray, prm: ScanParams, plain: bool = False):
-    """Run every lane [starts[i], stops[i]) to completion. Returns host
-    arrays (st, recs): the final lane state int64 [N_FIELDS, B] (F_CURSOR
-    the exit position, F_POISON, F_OUT_N, F_STEPS per lane) and the emitted
-    records int64 [sum(out_n), 3] in lane-major order. plain runs the plain
-    torch versions on any device; otherwise one kernel launch runs the
-    scan: seed_scan in the xla and none modes, seed_lockstep in pallas
-    mode."""
+    """Run every lane from starts[i] to completion: stops is int [B] (the
+    lane's end, emit = ext = hard) or int [3, B] (emit, ext and hard
+    bounds, lane_bounds). Returns host arrays (st, recs): the final lane
+    state int64 [N_FIELDS, B] (F_CURSOR the exit position, F_POISON,
+    F_OUT_N, F_STEPS per lane) and the emitted records int64 [sum(out_n),
+    3] in lane-major order. plain runs the plain torch versions on any
+    device; otherwise one kernel launch runs the scan: seed_scan in the xla
+    and none modes, seed_lockstep in pallas mode."""
     return _scan_lanes(dfm, q_rows, starts, stops, prm, plain, None)[:2]
 
 
@@ -576,8 +626,9 @@ def _scan_lanes(dfm, q_rows, starts, stops, prm, plain, mesh, fm=None):
     B = len(starts)
     n = mesh.size
     per = mesh_lib.pad_to_multiple(max(B, 1), n) // n
+    # the bounds cut along the lanes; the padding lanes are empty
     parts = zip(mesh_lib.stripes(np.asarray(starts, np.int64), n, 0),
-                mesh_lib.stripes(np.asarray(stops, np.int64), n, 0))
+                mesh_lib.stripes(lane_bounds(starts, stops).T, n, 0))
     tables = mesh_lib.shard_index(dfm, mesh, fm)
     rows = {dev: q_rows.to(dev) for dev in tables}
     shared = prm.sa_mode == "pallas" and not plain
@@ -589,7 +640,7 @@ def _scan_lanes(dfm, q_rows, starts, stops, prm, plain, mesh, fm=None):
         dev = mesh.devices[i]
         with mesh.on(i, shared=shared):
             pending.append((i, real, _scan_launch(tables[dev], rows[dev],
-                                                  st_i, sp_i, prm, plain)))
+                                                  st_i, sp_i.T, prm, plain)))
     st_parts, rec_parts = [], []
     for i, real, p in pending:
         with mesh.on(i, shared=shared):
@@ -603,40 +654,86 @@ def _scan_lanes(dfm, q_rows, starts, stops, prm, plain, mesh, fm=None):
             len(pending))
 
 
+def record_starts(starts: np.ndarray, st: np.ndarray,
+                  recs: np.ndarray) -> np.ndarray:
+    """The query position of every record of a scan round (lane-major, as
+    scan_lanes returns them)."""
+    lane = np.repeat(np.arange(len(starts), dtype=np.int64), st[F_OUT_N])
+    return (recs[:, 0] & 0xFFFF) + np.asarray(starts, np.int64)[lane]
+
+
+def poison_causes(st: np.ndarray, qs: np.ndarray, max_out: int):
+    """(lanes poisoned at a bound, lanes poisoned with a full emit buffer)
+    of a scan round, qs its records' positions (record_starts). A poisoned
+    lane whose buffer has room, or whose last record stands at its poison
+    position (the clipped hit), was clipped at its ext bound; any other had
+    a full buffer (an overflow, or a clipped miss that filled nothing)."""
+    n, poison = st[F_OUT_N], st[F_POISON]
+    last = np.full(n.shape[0], -1, dtype=np.int64)
+    has = n > 0
+    last[has] = qs[np.cumsum(n)[has] - 1]
+    bad = poison != POISON_NONE
+    bound = bad & ((n < max_out) | (last == poison))
+    return int(bound.sum()), int((bad & ~bound).sum())
+
+
 def find_seeds_all(dfm: DeviceFMIndex,
                    codes_list,
                    min_seed_length: int = 15,
                    max_seed_freq: int = 100,
                    sensitive: bool = False,
                    chunk: int = 10000,
+                   n_segments: int = 1,
+                   slack: int = 600,
+                   mesh=None,
                    max_out_cap: Optional[int] = None,
+                   init12: bool = True,
+                   *,
                    stats: Optional[dict] = None,
                    plain: bool = False,
                    rounds: Optional[list] = None,
-                   mesh=None,
                    fm=None):
     """Seed ALL query chromosomes, exactly reproducing the reference's
-    per-chunk sequential scan: one lane per chunk of every chromosome, all
+    per-chunk sequential scan: the lanes of every chromosome's chunks, all
     in one device scan per round (scan_lanes), or one a stripe over `mesh`
     (parallel/mesh.Mesh, whose first entry is dfm's device; a row-sharded
     dfm scans its lanes whole). fm, the host FMIndex dfm was laid out
     from, lays the tables out on the mesh's other devices; a mesh of dfm's
-    device alone needs none. The seeds are the same for any mesh.
+    device alone needs none. The seeds are the same for any mesh and any
+    n_segments.
+
+    n_segments = 1: one lane a chunk, its extensions clipped at the chunk's
+    end. n_segments > 1 (speculative segments, as the JAX package's
+    find_seeds_all): each chunk is cut into segments of chunk // n_segments
+    bases, each scanned by a lane of its own from the segment's start, its
+    extensions clipped at seg_end + slack; an extension clipped there
+    poisons the lane from that start position, and the host reconciles each
+    chunk's true path (_reconcile) and re-scans the spans it cannot join,
+    with the real clip, in further rounds. init12=False turns the
+    INIT-order jump off.
 
     Returns [(q_pos, r_pos, length), ...] per chromosome, each sorted by
     (PosDiff, qPos), identical to the reference scan. With `stats`, records
     per round the most steps any lane took ("scan_iterations": the
     lock-step loop's iteration count), the scans run ("scan_launches": one
-    a stripe that holds lanes) and the lane count ("scan_lanes").
-    With `rounds`, appends each round's scan_lanes arguments and results,
-    (q_rows, starts, stops, prm, st, recs): the tests and the comparison of
-    the kernels with their plain versions scan these lanes again.
-    GSALIGN_SA_MODE picks the SA mode (see pick_sa_mode). plain runs the
-    plain torch versions of the seed-stage kernels (seed_scan,
+    a stripe that holds lanes), the lanes ("round_lanes"), and the lanes
+    poisoned at a bound and with a full emit buffer ("poisoned_at_bound",
+    "poisoned_full": poison_causes); the first round's lane count
+    ("scan_lanes"); and with segments the seconds of host reconciliation
+    ("host_s"). With `rounds`, appends each round's scan_lanes arguments
+    and results, (q_rows, starts, stops, prm, st, recs): the tests and the
+    comparison of the kernels with their plain versions scan these lanes
+    again. GSALIGN_SA_MODE picks the SA mode (see pick_sa_mode). plain runs
+    the plain torch versions of the seed-stage kernels (seed_scan,
     seed_lockstep, resolve_sa) on any device: the comparison with the
     kernels on a card uses it."""
-    if chunk > 0xFFFF:
-        raise ValueError("seed chunk too large for the packed emit record")
+    # a record packs its start's offset from the lane's start and its
+    # length into 16-bit fields
+    if chunk + slack > 0xFFFF:
+        raise ValueError("seed chunk plus slack too large for the packed "
+                         "emit record")
+    if n_segments < 1:
+        raise ValueError(f"n_segments must be at least 1, got {n_segments}")
     sa_mode = pick_sa_mode(dfm)
     offs = []
     chunk_bounds = []            # (concat_start, concat_stop) per chunk
@@ -654,52 +751,183 @@ def find_seeds_all(dfm: DeviceFMIndex,
         qc[o:o + len(codes)] = codes
     q_rows = build_qrows(torch.from_numpy(qc).to(dfm.device))
 
-    hard_max = chunk // (5 if sensitive else (min_seed_length + 1)) + 2
+    # a lane records starts over one segment at most
+    seg_len = max(1, chunk // n_segments)
+    hard_max = seg_len // (5 if sensitive else (min_seed_length + 1)) + 2
     if max_out_cap is None:
         max_out_cap = 512 if sensitive else 96
     max_out = min(hard_max, max(2, max_out_cap))
     prm = ScanParams(min_seed_length=min_seed_length,
                      max_seed_freq=max_seed_freq, sensitive=sensitive,
-                     max_out=max_out, sa_mode=sa_mode)
-
-    starts = np.asarray([s for s, _ in chunk_bounds], dtype=np.int64)
-    stops = np.asarray([e for _, e in chunk_bounds], dtype=np.int64)
-    hits_q, hits_l, hits_k0, hits_fr = [], [], [], []
-    iters, launches = [], []
+                     max_out=max_out, sa_mode=sa_mode, init12=init12)
     lane_mesh = None if dfm.row_shards is not None else mesh
-    # each round advances an overflowing lane by >= max_out hits
-    for _round in range(2 + -(-chunk // max(1, max_out))):
+    log = {"scan_iterations": [], "scan_launches": [], "round_lanes": [],
+           "poisoned_at_bound": [], "poisoned_full": []}
+
+    def scan(starts, stops):
+        """One round: (st, recs, the records' positions)."""
         st, recs, n_scans = _scan_lanes(dfm, q_rows, starts, stops, prm,
                                         plain, lane_mesh, fm)
         if rounds is not None:
             rounds.append((q_rows, starts, stops, prm, st, recs))
-        iters.append(int(st[F_STEPS].max()) if len(starts) else 0)
-        launches.append(n_scans)
-        lane = np.repeat(np.arange(len(starts), dtype=np.int64),
-                         st[F_OUT_N])
-        ls, k0, fr = recs[:, 0] >> 16, recs[:, 1], recs[:, 2]
+        qs = record_starts(starts, st, recs)
+        log["scan_iterations"].append(int(st[F_STEPS].max())
+                                      if len(starts) else 0)
+        log["scan_launches"].append(n_scans)
+        log["round_lanes"].append(len(starts))
+        for key, n in zip(("poisoned_at_bound", "poisoned_full"),
+                          poison_causes(st, qs, max_out)):
+            log[key].append(n)
+        return st, recs, qs
+
+    if n_segments == 1:
+        hits = _chunk_lanes(scan, chunk_bounds, chunk, max_out)
+    else:
+        hits = _segment_lanes(scan, chunk_bounds, chunk, seg_len, slack,
+                              n_segments, max_out, sensitive, log)
+    if stats is not None:
+        stats.update(log)
+        stats["scan_lanes"] = log["round_lanes"][0]
+    q_pos, r_pos, length = _expand_hits(
+        dfm, *(np.concatenate(h) if h else np.zeros(0, np.int64)
+               for h in hits), plain)
+    return _split_per_chromosome(q_pos, r_pos, length, codes_list, offs)
+
+
+def _chunk_lanes(scan, chunk_bounds, chunk, max_out):
+    """n_segments = 1: one lane a chunk, extensions clipped at its end. The
+    seeds are the records below each lane's poison position, plus re-scan
+    rounds from the poison positions of lanes whose emit buffer overflowed.
+    Returns the hits' (qs, ls, k0, fr) as lists of arrays."""
+    starts = np.asarray([s for s, _ in chunk_bounds], dtype=np.int64)
+    stops = np.asarray([e for _, e in chunk_bounds], dtype=np.int64)
+    hits = ([], [], [], [])
+    # each round advances an overflowing lane by >= max_out hits
+    for _round in range(2 + -(-chunk // max(1, max_out))):
+        st, recs, qs = scan(starts, stops)
         poison = st[F_POISON]
-        qs = (recs[:, 0] & 0xFFFF) + starts[lane]
-        keep = qs < poison[lane]
-        hits_q.append(qs[keep])
-        hits_l.append(ls[keep])
-        hits_k0.append(k0[keep])
-        hits_fr.append(fr[keep])
+        keep = qs < np.repeat(poison, st[F_OUT_N])
+        for h, col in zip(hits, (qs, recs[:, 0] >> 16, recs[:, 1],
+                                 recs[:, 2])):
+            h.append(col[keep])
         pend = np.flatnonzero(poison != POISON_NONE)
         if pend.size == 0:
-            break
+            return hits
         starts = poison[pend]
         stops = stops[pend]
+    raise RuntimeError("seed overflow re-scan did not converge")
+
+
+class _Lane:
+    """One scanned lane's results, as the reconciliation reads them: its
+    start, its records' positions (qs), lengths, k0 and freq, the position
+    its scan advanced to after each record (adv), its exit cursor and its
+    poison position."""
+    __slots__ = ("start", "qs", "ls", "k0", "fr", "adv", "exit", "poison")
+
+    def __init__(self, start, qs, ls, k0, fr, adv, exit_, poison):
+        (self.start, self.qs, self.ls, self.k0, self.fr, self.adv, self.exit,
+         self.poison) = start, qs, ls, k0, fr, adv, exit_, poison
+
+    def visited(self, e: int) -> bool:
+        """Was position e a scan start of this lane's path? True iff no
+        record jumped over it (between records the scan advances by one;
+        the JAX package's seeding._visited)."""
+        h = int(np.searchsorted(self.qs, e, side="left")) - 1  # qs[h] < e
+        return h < 0 or e >= self.adv[h]
+
+
+def _lanes_of(starts, st, recs, qs, sensitive):
+    """_Lane of every lane of a scan round."""
+    n = st[F_OUT_N]
+    ends = np.cumsum(n)
+    ls = recs[:, 0] >> 16
+    adv = qs + (5 if sensitive else ls + 1)
+    return [_Lane(int(starts[i]), qs[b:e], ls[b:e], recs[b:e, 1],
+                  recs[b:e, 2], adv[b:e], int(st[F_CURSOR, i]),
+                  int(st[F_POISON, i]))
+            for i, (b, e) in enumerate(zip((ends - n).tolist(),
+                                           ends.tolist()))]
+
+
+def _segment_lanes(scan, chunk_bounds, chunk, seg_len, slack, n_segments,
+                   max_out, sensitive, log):
+    """n_segments > 1: round 1 scans a lane from every segment's start,
+    each recording over its segment and extending to seg_end + slack; then
+    the host reconciles (_reconcile) and scans the spans it could not join
+    in fixup rounds, with the chunk's end as the real clip. Returns the
+    hits' (qs, ls, k0, fr) as lists of arrays; puts the host's seconds in
+    log["host_s"]."""
+    import time
+    starts, bounds, keys = [], [], []
+    for ci, (cs, ce) in enumerate(chunk_bounds):
+        for k, p in enumerate(range(cs, ce, seg_len)):
+            starts.append(p)
+            bounds.append((min(p + seg_len, ce),
+                           min(p + seg_len + slack, ce), ce))
+            keys.append((ci, k))
+    starts = np.asarray(starts, dtype=np.int64)
+    st, recs, qs = scan(starts, np.asarray(bounds, dtype=np.int64).T)
+    t0 = time.perf_counter()
+    lanes = dict(zip(keys, _lanes_of(starts, st, recs, qs, sensitive)))
+    hits = ([], [], [], [])
+    entry = np.asarray([cs for cs, _ in chunk_bounds], dtype=np.int64)
+    done = np.zeros(len(chunk_bounds), dtype=bool)
+    host_s = 0.0
+    # the reconciliation passes, and overflow re-scans (each advances an
+    # overflowing chunk by >= max_out hits)
+    for _round in range(n_segments + 1 + -(-chunk // max(1, max_out))):
+        fixups = _reconcile(lanes, chunk_bounds, seg_len, entry, done, hits)
+        if not fixups:
+            break
+        f = np.asarray(fixups, dtype=np.int64)          # ci, k, e, emit, ce
+        host_s += time.perf_counter() - t0
+        # the fixup lanes clip at the chunk's end: never poisoned at a
+        # bound, though a full emit buffer still poisons
+        st, recs, qs = scan(f[:, 2], f[:, [3, 4, 4]].T)
+        t0 = time.perf_counter()
+        lanes.update(zip(map(tuple, f[:, :2].tolist()),
+                         _lanes_of(f[:, 2], st, recs, qs, sensitive)))
     else:
-        raise RuntimeError("seed overflow re-scan did not converge")
-    if stats is not None:
-        stats["scan_iterations"] = iters
-        stats["scan_launches"] = launches
-        stats["scan_lanes"] = len(chunk_bounds)
-    q_pos, r_pos, length = _expand_hits(
-        dfm, np.concatenate(hits_q), np.concatenate(hits_l),
-        np.concatenate(hits_k0), np.concatenate(hits_fr), plain)
-    return _split_per_chromosome(q_pos, r_pos, length, codes_list, offs)
+        raise RuntimeError("seed reconciliation did not converge")
+    log["host_s"] = host_s + time.perf_counter() - t0
+    return hits
+
+
+def _reconcile(lanes, chunk_bounds, seg_len, entry, done, hits) -> list:
+    """One reconciliation pass: walk each chunk not done from its entry
+    position e through its segments' lanes. A lane that started at e, or
+    whose path visited e (_Lane.visited), holds the true path from e up to
+    its poison position (a path is a function of the position alone), or
+    else to its exit: its records there are the chunk's hits, appended to
+    `hits`, and e moves on. A lane that started past e, e inside a lane's
+    poisoned span, or a lane whose path jumped over e stops the walk: e
+    starts a fixup lane over the rest of its segment. Updates entry and
+    done in place; returns the fixups [(ci, k, e, emit, ce)]."""
+    fixups = []
+    for ci, (cs, ce) in enumerate(chunk_bounds):
+        if done[ci]:
+            continue
+        e = int(entry[ci])
+        while e < ce:
+            k = (e - cs) // seg_len
+            lane = lanes.get((ci, k))
+            if lane is not None and (lane.start > e or e >= lane.poison):
+                lane = None
+            if lane is None or (lane.start < e and not lane.visited(e)):
+                fixups.append((ci, k, e, min(cs + (k + 1) * seg_len, ce),
+                               ce))
+                break
+            i = int(np.searchsorted(lane.qs, e))
+            j = int(np.searchsorted(lane.qs, lane.poison)) \
+                if lane.poison != POISON_NONE else len(lane.qs)
+            for h, col in zip(hits, (lane.qs, lane.ls, lane.k0, lane.fr)):
+                h.append(col[i:j])
+            e = lane.poison if lane.poison != POISON_NONE else lane.exit
+        else:
+            done[ci] = True
+        entry[ci] = e
+    return fixups
 
 
 def _split_per_chromosome(q_pos, r_pos, length, codes_list, offs):
@@ -752,6 +980,22 @@ def _expand_hits(dfm: DeviceFMIndex, qs, ls, k0, fr, plain: bool = False):
     return qs[rep].astype(np.int64), r_pos, lens
 
 
-def find_seeds(dfm: DeviceFMIndex, query_codes: np.ndarray, **kw):
-    """Find all LMEM seeds of one query chromosome (see find_seeds_all)."""
-    return find_seeds_all(dfm, [query_codes], **kw)[0]
+def find_seeds(dfm: DeviceFMIndex,
+               query_codes: np.ndarray,
+               min_seed_length: int = 15,
+               max_seed_freq: int = 100,
+               sensitive: bool = False,
+               chunk: int = 10000,
+               n_segments: int = 1,
+               slack: int = 600,
+               mesh=None,
+               max_out_cap: Optional[int] = None,
+               init12: bool = True,
+               **kw):
+    """Find all LMEM seeds of one query chromosome (see find_seeds_all;
+    kw: its stats, plain, rounds and fm)."""
+    return find_seeds_all(
+        dfm, [query_codes], min_seed_length=min_seed_length,
+        max_seed_freq=max_seed_freq, sensitive=sensitive, chunk=chunk,
+        n_segments=n_segments, slack=slack, mesh=mesh,
+        max_out_cap=max_out_cap, init12=init12, **kw)[0]

@@ -426,6 +426,59 @@ def test_seed_lockstep_raises_on_a_grid_the_card_cannot_hold(card,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("sa_intv,sa_mode,wide", [
+    (1, "xla", False), (1, "pallas", False), (8, "xla", False),
+    (8, "xla", True)])
+def test_segments_match_plain_on_card(card, monkeypatch, sa_intv, sa_mode,
+                                      wide):
+    """Speculative segments (n_segments 8, slack 20: lanes poisoned at
+    their bounds, fixup rounds) through the kernels against the plain
+    versions on the same card: the same seeds and round statistics; then
+    the first round's segment lanes and a fixup round's through seed_scan
+    (or in pallas mode seed_lockstep with 2 slots) on the whole tables and
+    on 4 row blocks, and through the lock step without slots, each equal
+    to the plain scan (lane state, records)."""
+    from gsalign_tpu_torch.parallel import mesh as mesh_lib
+    monkeypatch.setattr(seeding, "_SA_GATHER_K", 2)
+    monkeypatch.setenv("GSALIGN_SA_MODE", sa_mode)
+    g, queries = genome_and_queries(61)
+    queries.append(g.codes_fwd[100:1100].copy())     # clips at the bounds
+    dfm = rank.DeviceFMIndex.from_host(
+        build_fmindex(g, sa_intv=sa_intv, force_wide=wide), card)
+    cut = mesh_lib.shard_index_rows(dfm, four_entries(card))
+    kw = dict(min_seed_length=12, chunk=300, n_segments=8, slack=20)
+    plain_stats, stats, rounds = {}, {}, []
+    want = seeding.find_seeds_all(dfm, queries, plain=True,
+                                  stats=plain_stats, **kw)
+    got = seeding.find_seeds_all(dfm, queries, stats=stats, rounds=rounds,
+                                 **kw)
+    for a, b in zip(got, want):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    for st_ in (stats, plain_stats):
+        st_.pop("host_s")
+    assert stats == plain_stats
+    assert stats["poisoned_at_bound"][0] > 0 and len(rounds) > 1
+    lock = sa_mode == "pallas"
+    wrapper = seed_cuda.seed_lockstep if lock else seed_cuda.seed_scan
+    for q_rows, starts, bounds, prm, st, recs in rounds[:2]:
+        st_p, recs_p = seeding.scan_lanes(dfm, q_rows, starts, bounds, prm,
+                                          plain=True)
+        np.testing.assert_array_equal(st, st_p)
+        np.testing.assert_array_equal(recs, recs_p)
+        n0 = wrapper.sharded_launches
+        st_c, recs_c = seeding.scan_lanes(cut, q_rows, starts, bounds, prm)
+        assert wrapper.sharded_launches == n0 + 1
+        np.testing.assert_array_equal(st_c, st_p)
+        np.testing.assert_array_equal(recs_c, recs_p)
+        if not lock:
+            lanes = seeding.ScanLanes.start(starts, bounds, prm.max_out,
+                                            card)
+            seeding.scan_lockstep(dfm, q_rows, lanes, prm, plain=False)
+            np.testing.assert_array_equal(lanes.st.cpu().numpy(), st_p)
+
+
+@pytest.mark.cuda
 def test_seed_scan_raises_on_the_step_limit(card, monkeypatch):
     """A lane that would take more steps than the limit sets the flag
     that the wrapper turns into an exception."""
@@ -434,7 +487,7 @@ def test_seed_scan_raises_on_the_step_limit(card, monkeypatch):
     dfm = rank.DeviceFMIndex.from_host(build_fmindex(g), card)
     q_rows, starts, stops, prm = scan_cases(
         dfm, queries, min_seed_length=12, chunk=300)[0]
-    monkeypatch.setattr(seed_cuda, "_step_cap", lambda max_len: 5)
+    monkeypatch.setattr(seed_cuda, "_step_cap", lambda *spans: 5)
     with pytest.raises(RuntimeError, match="step limit 5"):
         seeding.scan_lanes(dfm, q_rows, starts, stops, prm)
 

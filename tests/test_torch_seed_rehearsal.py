@@ -319,3 +319,71 @@ def test_row_blocks_up_to_the_bound_on_host_threads(host_lib, sampled, wide):
                                      mesh_lib.make_mesh(["cpu"] * (n + 1)))
     with pytest.raises(ValueError, match=f"at most MAX_SHARDS = {n}"):
         seed_cuda._resolve_args(over, k, out)
+
+
+SEG_LEN, SLACK = 80, 12          # four segments a 320-base chunk
+
+
+def segment_lanes_of(dfm, qry):
+    """(index tables, query rows, lane starts, lane bounds [3, B]) of
+    speculative segment lanes on the CPU: the LANES chunks of lanes_of cut
+    into segments of SEG_LEN bases, each recording over its segment and
+    extending SLACK bases past it (the chunk's end for the last): a tiny
+    slack, so that the 100 kb pair's long exact matches clip at the
+    artificial bounds and poison lanes."""
+    dfm, q_rows, chunk_starts, _ = lanes_of(dfm, qry)
+    n = LANE_LEN // SEG_LEN
+    first = chunk_starts[:LANES // n]
+    starts = (first[:, None] + SEG_LEN * np.arange(n)).reshape(-1)
+    hard = np.repeat(first + LANE_LEN, n)
+    bounds = np.stack([starts + SEG_LEN,
+                       np.minimum(starts + SEG_LEN + SLACK, hard), hard])
+    return dfm, q_rows, starts, bounds
+
+
+@pytest.mark.parametrize("kernel,wide,blocks", [
+    ("seed_scan", False, 0), ("seed_scan", True, 0),
+    ("seed_lockstep", False, 0), ("seed_lockstep", True, 0),
+    ("seed_scan", False, 3), ("seed_scan", True, 3),
+    ("seed_lockstep", False, 3)])
+def test_segment_lanes_on_host_threads(monkeypatch, host_lib, pair, case,
+                                       sampled, kernel, wide, blocks):
+    """seed_scan and seed_lockstep on speculative segment lanes (emit <
+    ext < hard, lanes poisoned at their ext bound) against the plain scan:
+    equal lane state (exits, poison positions, steps) and records. seed_scan
+    on the full-SA index in xla mode (direct extensions clip at the bound
+    too) and on the forced-wide index, seed_lockstep in pallas mode with 2
+    slots and on the forced-wide index; whole, and on tables cut in 3 row
+    blocks (the sampled indexes for seed_scan)."""
+    from gsalign_tpu_torch.parallel import mesh as mesh_lib
+    monkeypatch.setattr(tseeding, "_SA_GATHER_K", 2)
+    if blocks:
+        whole = case[0] if kernel == "seed_lockstep" else sampled[wide]
+    else:
+        whole = sampled[True] if wide else case[0]
+    mode = "none" if not whole.direct_ok else \
+        ("pallas" if kernel == "seed_lockstep" else "xla")
+    _, q_rows, starts, bounds = segment_lanes_of(whole, pair[1])
+    tables = mesh_lib.shard_index_rows(
+        whole, mesh_lib.make_mesh(["cpu"] * blocks)) if blocks else whole
+    prm = params(mode)
+    want = tseeding.ScanLanes.start(starts, bounds, prm.max_out, "cpu")
+    tseeding.scan_lockstep(whole, q_rows, want, prm, plain=True)
+    got = tseeding.ScanLanes.start(starts, bounds, prm.max_out, "cpu")
+    if kernel == "seed_lockstep":
+        seed_cuda.launch_lockstep(host_lib, None, tables, q_rows, got, prm,
+                                  0, None)
+    else:
+        args = seed_cuda._seed_args(
+            tables, q_rows, got, prm,
+            win_words=seed_cuda._win_words(got.max_len),
+            step_cap=seed_cuda._step_cap(got.max_emit, got.max_len))
+        assert host_lib.gsalign_seed_scan(ctypes.byref(args), None) == 0
+    st, want_st = got.read_back()[0], want.read_back()[0]
+    np.testing.assert_array_equal(st, want_st)
+    assert torch.equal(got.out, want.out)
+    recs = got.out[torch.arange(prm.max_out)[None, :]
+                   < got.st[tseeding.F_OUT_N][:, None]].numpy()
+    at_bound, _ = tseeding.poison_causes(
+        st, tseeding.record_starts(starts, st, recs), prm.max_out)
+    assert at_bound > 0 and st[tseeding.F_OUT_N].sum() > 0
