@@ -11,6 +11,8 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py wide-big   # phase 1, then a 1.08 Gb wide index
                                      # (2N > 2^31): minutes, tens of GB
     python3 chip_smoke.py tools      # phase 1, the 4.6 Mb pair, phase 9
+    python3 chip_smoke.py probes     # phase 1, then phase 10 at 100 Mb
+                                     # and at 250 Mb (about 10 min)
     python3 chip_smoke.py shard-times  # phase 1, the row-sharded seed
                                      # kernels timed at 4, 8 and 16 blocks
     python3 chip_smoke.py 3gb [LEN]  # phase 1, then config 5 (3.1 Gb, or
@@ -92,7 +94,19 @@ Phases (each raises on failure; nothing is caught):
   9. the port's tools (gsalign_tpu_torch/tools/): run_3gb at 2 Mb with
      whole tables and, from the index it saved, with the rows cut over 4
      entries of the card, each with the JAX tool's counts and equal MAF
-     and VCF bytes; profile_pipeline on the 4.6 Mb pair, one timed run.
+     and VCF bytes; profile_pipeline on the 4.6 Mb pair, one timed run;
+ 10. the port's stage probes (gsalign_tpu_torch/tools/exp_seedprof,
+     seed_stats, exp_seedab, exp_dphist, exp_align) once each on the
+     bench's 100 Mb pair (celegans_100mb; its pair and index made by a
+     process started after phase 1, beside the other phases): the JAX
+     record's counts, the bench's seed lanes, the same seeds with INIT-12
+     off, seed_scan and the DP kernels launched inside the tools, n_dp
+     equal to its buckets and to its launches' problems, the seed stage's
+     device busy share under torch.profiler, and every DP launch of
+     exp_align held against the plain version (ops equal) and timed
+     against its bound, one [dp] line each; seed_scan on the first round's
+     lanes against the plain scan and its bound. The probes mode runs it
+     at 100 and 250 Mb (human_250mb).
 wide-big: a 1,080,000,000-base random genome (2N = 2.16e9 > 2^31; the
 JAX package's tests/test_wide_e2e.py), its index built once; a 200 kb
 query seeded (coordinates past 2^31, seeds equal to the text), seed_scan
@@ -1692,21 +1706,26 @@ def fresh_lanes(scan_args):
     return seeding.ScanLanes.start(starts, stops, prm.max_out, q_rows.device)
 
 
-def sharded_scan_check(whole, cut, scan_args, p_lanes, bnd) -> dict:
+def sharded_scan_check(whole, cut, scan_args, p_lanes, bnd,
+                       cut_plain=None) -> dict:
     """seed_scan's ShardedTable instance on `cut` (whole's rows in blocks)
     against the plain scan of the cut tables (through t3_row_fetch) on the
     lanes of scan_args, itself equal to p_lanes, the plain scan of the
     whole tables; then timed beside the whole-table instance, in turns
-    (sharded_times), launch and read-back. Returns sharded_result's
-    dict."""
+    (sharded_times), launch and read-back. cut_plain, (lanes, ms) of that
+    plain scan through another cut of the same tables, stands in for it.
+    Returns sharded_result's dict and the plain scan's (lanes, ms)."""
     from gsalign_tpu_torch.ops import seed_cuda, seeding
     q_rows, _, _, prm = scan_args
 
     def fresh():
         return fresh_lanes(scan_args)
-    plain = fresh()
-    plain_ms = timed(lambda: seeding.seed_scan_plain(cut, q_rows, plain,
-                                                     prm))[1]
+    if cut_plain is None:
+        plain = fresh()
+        plain_ms = timed(lambda: seeding.seed_scan_plain(cut, q_rows, plain,
+                                                         prm))[1]
+    else:
+        plain, plain_ms = cut_plain
     lanes = fresh()
     seed_cuda.seed_scan(cut, q_rows, lanes, prm)
     err = max(int((a - b).abs().max()) for a, b in (
@@ -1718,7 +1737,8 @@ def sharded_scan_check(whole, cut, scan_args, p_lanes, bnd) -> dict:
     whole_ms, ms = sharded_times(
         lambda t, lanes: seed_cuda.seed_scan(t, q_rows, lanes, prm),
         whole, cut, fresh)
-    return sharded_result(ms, whole_ms, plain_ms, err, bnd)
+    return (sharded_result(ms, whole_ms, plain_ms, err, bnd),
+            (plain, plain_ms))
 
 
 def sharded_resolve_check(whole, cut, k, bnd, edges=None) -> dict:
@@ -1769,7 +1789,7 @@ def sharded_checks() -> dict:
 
     # seed_scan, 12 Mb sa_intv=8
     dfm8, _, (res, args8, p_lanes8) = CASES["12mb-sa8"]
-    out["seed_scan_sharded"] = sharded_scan_check(
+    out["seed_scan_sharded"], cut_plain = sharded_scan_check(
         dfm8, shard_index_rows(dfm8, mesh), args8, p_lanes8, res)
     say_sharded("seed_scan", MESH_ENTRIES, f"12mb-sa8, {len(args8[1])} "
                 f"lanes, launch and read-back", out["seed_scan_sharded"])
@@ -1813,11 +1833,14 @@ def sharded_checks() -> dict:
     say_sharded("resolve_sa", MESH_ENTRIES, f"12mb-wide, {k.numel()} ranks",
                 out["resolve_sa_sharded"])
 
-    # MANY_BLOCKS blocks of the one card
+    # MANY_BLOCKS blocks of the one card; seed_scan against the plain scan
+    # through the MESH_ENTRIES blocks (the same function on the same lanes,
+    # and the slowest plain run of the default run: not run twice)
     many = make_mesh([torch.device("cuda")] * MANY_BLOCKS)
-    say_sharded("seed_scan", MANY_BLOCKS, f"12mb-sa8, {len(args8[1])} lanes",
+    say_sharded("seed_scan", MANY_BLOCKS, f"12mb-sa8, {len(args8[1])} lanes; "
+                f"plain: through {MESH_ENTRIES} blocks",
                 sharded_scan_check(dfm8, shard_index_rows(dfm8, many), args8,
-                                   p_lanes8, res))
+                                   p_lanes8, res, cut_plain=cut_plain)[0])
     say_sharded("resolve_sa", MANY_BLOCKS, f"12mb-wide, {k.numel()} ranks",
                 sharded_resolve_check(dfmw, shard_index_rows(dfmw, many), k,
                                       CASES["bounds"]["resolve_sa"]))
@@ -1979,9 +2002,9 @@ def phase_profile():
     """Device operations (kernels, copies and sets) of the seed stage under
     torch.profiler at 4.6 Mb, per scan, in both SA modes."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from gsalign_tpu_torch.ops import seeding
+    from gsalign_tpu_torch.utils.trace import device_ops
     dfm, queries = load_case("4.6mb", "idx")
     for mode in ("xla", "pallas"):
         stats = {}
@@ -1993,21 +2016,16 @@ def phase_profile():
                 seeding.find_seeds_all(dfm, queries, stats=stats)
                 torch.cuda.synchronize()
                 wall = time.time() - t0
-        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        dev = device_ops(prof)
         n_iter = sum(stats["scan_iterations"])
         n_scan = len(stats["scan_iterations"])
-        busy = sum(e.time_range.elapsed_us() for e in dev) / 1e6
-        names = {}
-        for e in dev:
-            n, us = names.get(e.name, (0, 0.0))
-            names[e.name] = (n + 1, us + e.time_range.elapsed_us())
-        say(f"[profile] seed stage 4.6mb {mode}: {len(dev)} device "
+        say(f"[profile] seed stage 4.6mb {mode}: {dev['n']} device "
             f"operations over {n_scan} scan(s) of {n_iter} iterations "
-            f"({len(dev) / max(1, n_scan):.1f} per scan, query rows and hit "
-            f"expansion included); device busy {busy:.4f} s of {wall:.3f} s "
-            f"traced wall")
-        for name, (n, us) in sorted(names.items(), key=lambda kv: -kv[1][1]
-                                    )[:8]:
+            f"({dev['n'] / max(1, n_scan):.1f} per scan, query rows and hit "
+            f"expansion included); device busy {dev['busy_s']:.4f} s of "
+            f"{wall:.3f} s traced wall")
+        for name, (n, us) in sorted(dev["ops"].items(),
+                                    key=lambda kv: -kv[1][1])[:8]:
             say(f"[profile]   {n:6d} x {us / n:8.2f} us  {name[:90]}")
 
 
@@ -2170,6 +2188,174 @@ def phase_tools(d46: str) -> dict:
         f"{k}={v:.4f}" for k, v in times.items())
         + f" TOTAL={sum(times.values()):.4f}")
     return runs
+
+
+# the bench configurations of the probes phase: the first in the default
+# run, both in the probes mode (the 250 Mb index build alone takes minutes)
+PROBE_TAGS = ("celegans_100mb", "human_250mb")
+
+
+def start_pair(tag: str):
+    """(process, start time): a process that makes the bench configuration
+    tag's pair and index under WORK (tools/common.pair_dir, the bench's
+    make_pair and index build), started early so that make_pair's host loop
+    and the build run beside the card's phases; at the lowest CPU priority,
+    so that it takes the cores they leave idle."""
+    code = ("import os\n"
+            "os.nice(19)\n"
+            "from gsalign_tpu_torch.tools.common import pair_dir\n"
+            f"pair_dir({WORK!r}, {tag!r})\n")
+    return subprocess.Popen([sys.executable, "-c", code], cwd=REPO), \
+        time.time()
+
+
+def stop(procs) -> None:
+    """Kill and reap every process of procs still running."""
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def probe_run(fn, *args, **kw):
+    """(fn's result, the kernel launches inside it, its wall seconds): the
+    counts set to 0 just before it and read just after."""
+    zero_counts()
+    t0 = time.time()
+    res = fn(*args, **kw)
+    wall = time.time() - t0
+    return res, {k: n for k, n in launch_counts().items() if n}, wall
+
+
+def phase_probes(tag: str, prep) -> dict:
+    """The port's five stage probes (gsalign_tpu_torch/tools/) on the card
+    at the bench configuration tag, once each, through their functions, on
+    the pair and index that prep's process made (start_pair). Each prints
+    the JAX tool's lines and one [probes] line. Checks: exp_dphist's
+    compare_genomes gives the JAX record's counts (bench.JAX_RECORD);
+    exp_align's n_dp is the sum of its buckets and of its recorded DP
+    launches' problems; exp_seedprof's first round has the bench's seed
+    lanes (a lane a 10 kb chunk); exp_seedab's seeds are the same with
+    INIT-12 off, in no fewer steps; seed_scan launched inside each seed
+    tool, and a DP kernel inside exp_align and exp_dphist. Then every DP
+    launch that exp_align recorded (its last rep) goes through
+    phase_main_shapes: each kernel that takes its width held against the
+    plain version on the launch's whole inputs (ops equal) and timed
+    against its bound. exp_seedprof's last run is traced (torch.profiler)
+    for the device's busy share. Last, seed_scan on the main path's first
+    round of lanes against the plain scan, timed against its bound
+    (scan_check). Returns {"walls": {tool: s}, "errs": {kernel: max
+    |diff|}}."""
+    import torch
+    from gsalign_tpu_torch import bench
+    from gsalign_tpu_torch.config import AlignConfig
+    from gsalign_tpu_torch.genome.fasta import read_fasta
+    from gsalign_tpu_torch.tools import (exp_align, exp_dphist, exp_seedab,
+                                         exp_seedprof, seed_stats)
+    proc, started = prep
+    if proc.wait(timeout=1200) != 0:
+        raise RuntimeError(f"{tag}: making the pair and index exited "
+                           f"{proc.returncode}")
+    d = os.path.join(WORK, tag)
+    with open(os.path.join(d, "build_seconds.json")) as fh:
+        build_s = json.load(fh)["seconds"]
+    say(f"[probes] {tag}: pair and index ready {time.time() - started:.1f} "
+        f"s after their process started (index build {build_s:.1f} s)")
+    dev = torch.device("cuda")
+    walls = {}
+
+    def launched(tool, launches, kernels):
+        if not any(launches.get(k, 0) > 0 for k in kernels):
+            raise AssertionError(f"{tag} {tool}: none of {kernels} "
+                                 f"launched: {launches}")
+
+    prof, launches, walls["exp_seedprof"] = probe_run(
+        exp_seedprof.profile, d, tag, 3, dev,
+        trace_dir=os.path.join(WORK, "trace", tag))
+    exp_seedprof.report(prof)
+    launched("exp_seedprof", launches, ("seed_scan",))
+    chunk = AlignConfig().seed_exploration_chunk
+    lanes = sum(-(-len(q) // chunk) for _, q in
+                read_fasta(os.path.join(d, "qry.fa")))
+    rounds = prof["reps"][-1]["rounds"]
+    if rounds[0]["lanes"] != lanes:
+        raise AssertionError(f"{tag} exp_seedprof: {rounds[0]['lanes']} "
+                             f"lanes in round 1, the bench's {lanes}")
+    tr = prof["trace"]
+    say(f"[probes] exp_seedprof {tag}: rounds' lanes "
+        f"{[r['lanes'] for r in rounds]}, longest lane's steps "
+        f"{[r['steps'] for r in rounds]}, round seconds "
+        f"{[round(r['wall_s'], 4) for r in rounds]}, us a step "
+        f"{[round(r['us_per_step'], 3) for r in rounds]}, lane-step "
+        f"integral {[round(r['integral_pct'], 1) for r in rounds]} % of B x "
+        f"max; run {prof['reps'][-1]['total_s']:.4f} s, host outside the "
+        f"rounds {prof['reps'][-1]['host_s']:.4f} s; device busy "
+        f"{tr['busy_s']:.4f} s of {tr['wall_s']:.4f} s traced "
+        f"({100 * tr['busy_share']:.1f} %); launches {launches}")
+
+    st, launches, walls["seed_stats"] = probe_run(seed_stats.stats_of, d, dev)
+    seed_stats.report(st)
+    launched("seed_stats", launches, ("seed_scan",))
+    say(f"[probes] seed_stats {tag}: a round a chromosome, B "
+        f"{[r['B'] for r in st['rounds']]}, longest steps "
+        f"{[r['max_iter'] for r in st['rounds']]}, total_max_iters "
+        f"{st['total_max_iters']}, pass {st['wall_s']:.4f} s; launches "
+        f"{launches}")
+
+    ab, launches, walls["exp_seedab"] = probe_run(exp_seedab.ab, d, tag, dev)
+    exp_seedab.report(ab)
+    launched("exp_seedab", launches, ("seed_scan",))
+    on, off = ab["rows"]
+    if not (on["same"] and off["same"] and off["iters"] >= on["iters"]):
+        raise AssertionError(f"{tag} exp_seedab: {ab['rows']}")
+    say(f"[probes] exp_seedab {tag}: INIT-12 on {on['wall_s']:.4f} s, "
+        f"{on['iters']} steps; off {off['wall_s']:.4f} s, {off['iters']} "
+        f"steps; same seeds; launches {launches}")
+
+    hist, launches, walls["exp_dphist"] = probe_run(exp_dphist.dphist, d,
+                                                    tag, dev)
+    exp_dphist.report(hist)
+    launched("exp_dphist", launches, ("seed_scan",))
+    launched("exp_dphist", launches, ("dp_small", "dp_any"))
+    if tuple(hist["counts"]) != bench.JAX_RECORD[tag]:
+        raise AssertionError(f"{tag} exp_dphist: counts {hist['counts']}, "
+                             f"the JAX record's {bench.JAX_RECORD[tag]}")
+    say(f"[probes] exp_dphist {tag}: {hist['dp_stats']}; hits a lane over "
+        f"{hist['lanes']} lanes: mean {hist['mean']:.2f}, p50/90/99/99.9 "
+        f"{hist['p50']:.0f}/{hist['p90']:.0f}/{hist['p99']:.0f}/"
+        f"{hist['p99.9']:.0f}, max {hist['max']}; counts {hist['counts']} "
+        f"(the JAX record's); stages "
+        f"{ {k: round(v, 4) for k, v in hist['stage_times'].items()} }; "
+        f"launches {launches}")
+
+    inputs = []
+    aln, launches, walls["exp_align"] = probe_run(exp_align.probe, d, tag, 2,
+                                                  dev, inputs=inputs)
+    exp_align.report(aln)
+    launched("exp_align", launches, ("dp_small", "dp_any"))
+    for rep in aln["reps"]:
+        n_b = sum(rep["buckets"].values())
+        n_l = sum(ln["B"] for ln in rep["launches"])
+        if not rep["n_dp"] == n_b == n_l:
+            raise AssertionError(f"{tag} exp_align: n_dp {rep['n_dp']}, "
+                                 f"{n_b} in the buckets, {n_l} launched")
+    rep = aln["reps"][-1]
+    say(f"[probes] exp_align {tag}: n_dp {rep['n_dp']}, buckets "
+        f"{rep['buckets']}; seconds "
+        f"{ {k: round(v, 4) for k, v in rep['times'].items()} }; "
+        f"{len(rep['launches'])} DP launches "
+        + ", ".join(f"{ln['kernel']} L={ln['L']} B={ln['B']} "
+                    f"{ln['ms']:.4f} ms" for ln in rep["launches"])
+        + f"; their CUDA-event sum {rep['dp_event_ms']:.4f} ms beside "
+        f"dp_device {rep['times']['dp_device'] * 1e3:.4f} ms; launches "
+        f"{launches}")
+    errs = phase_main_shapes(inputs)
+    say(f"[probes] {tag}: every DP launch of exp_align's last rep "
+        f"({len(inputs)}) held against the plain version on its whole "
+        f"inputs: ops equal")
+    dfm, queries = load_case(tag, "ref_idx")
+    errs["seed_scan"] = scan_check(tag, dfm, queries)[0]["max_abs_err"]
+    return {"walls": walls, "errs": errs}
 
 
 # rows of the synthetic t3 of rows_past_2_32: 2^32 words and 102,400 more
@@ -2472,7 +2658,7 @@ def mesh_3gb(fm, dfm, queries, scan, rs, whole: dict) -> None:
     say(f"[3gb] the cut: {time.time() - t0:.2f} s, {copied} bytes copied on "
         f"the card (the zero-padded last blocks), beside "
         f"{before / 2 ** 30:.2f} GiB allocated")
-    r = sharded_scan_check(dfm, cut, scan[1], scan[2], scan[0])
+    r = sharded_scan_check(dfm, cut, scan[1], scan[2], scan[0])[0]
     say_sharded("seed_scan", CONFIG5_ENTRIES, f"3gb, {len(scan[1][1])} "
                 f"lanes of the 200 kb query, launch and read-back", r)
     if rs is not None:
@@ -2706,6 +2892,21 @@ def main() -> int:
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
         return 0
+    if sys.argv[1:] == ["probes"]:
+        # the probes phase at 100 and 250 Mb, both pairs and indexes made
+        # beside it from the start (about 10 min). No result lines.
+        preps = {}
+        try:
+            phase_card()
+            preps = {tag: start_pair(tag) for tag in PROBE_TAGS}
+            for tag in PROBE_TAGS:
+                t0 = time.time()
+                phase_probes(tag, preps[tag])
+                say(f"[phase] phase_probes {tag} {time.time() - t0:.1f} s")
+        finally:
+            stop(p for p, _ in preps.values())
+            shutil.rmtree(WORK, ignore_errors=True)
+        return 0
     if sys.argv[1:] == ["shard-times"]:
         # the row-sharded instances timed beside the whole-table ones at
         # 4, 8 and 16 blocks (about a minute). No result lines.
@@ -2737,8 +2938,11 @@ def main() -> int:
         out = fn(*args)
         say(f"[phase] {fn.__name__} {time.time() - t0:.1f} s")
         return out
+    prep = None
     try:
         card = phase(phase_card)
+        # the probes phase's pair and index, made beside the phases before it
+        prep = start_pair(PROBE_TAGS[0])
         totals = phase(phase_kernels)
         phase(phase_oracle)
         phase(phase_entry)
@@ -2753,11 +2957,16 @@ def main() -> int:
         totals.update(mesh["kernels"])
         phase(phase_profile)
         tools = phase(phase_tools, os.path.join(WORK, "4.6mb"))
+        probes = phase(phase_probes, PROBE_TAGS[0], prep)
     finally:
+        if prep is not None:
+            stop([prep[0]])
         shutil.rmtree(WORK, ignore_errors=True)
     main_path = runs["4.6mb"]["launches"]
-    for name, err in runs["4.6mb"]["dp_errs"].items():
-        totals[name]["max_abs_err"] = max(totals[name]["max_abs_err"], err)
+    for errs in (runs["4.6mb"]["dp_errs"], probes["errs"]):
+        for name, err in errs.items():
+            totals[name]["max_abs_err"] = max(totals[name]["max_abs_err"],
+                                              err)
     say("[summary] " + "; ".join(
         f"{tag}: wall {r['wall']:.2f} s, seed {r['seed_s']:.2f} s, "
         f"iterations {r['iterations']}" for tag, r in runs.items()))
@@ -2766,6 +2975,9 @@ def main() -> int:
         for tag, r in mesh["runs"].items()) + f" ({card})")
     say("[summary] tools: " + "; ".join(
         f"{tag}: wall {r['wall']:.2f} s" for tag, r in tools.items())
+        + f" ({card})")
+    say(f"[summary] probes at {PROBE_TAGS[0]}: " + "; ".join(
+        f"{tool}: wall {w:.2f} s" for tool, w in probes["walls"].items())
         + f" ({card})")
     say("[summary] 4.6 Mb walls: " + ", ".join(
         f"{tag} {w:.2f} s" for tag, w in walls.items())

@@ -83,6 +83,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from typing import Optional
 
 import numpy as np
@@ -692,6 +693,7 @@ def find_seeds_all(dfm: DeviceFMIndex,
                    stats: Optional[dict] = None,
                    plain: bool = False,
                    rounds: Optional[list] = None,
+                   round_s: Optional[list] = None,
                    fm=None):
     """Seed ALL query chromosomes, exactly reproducing the reference's
     per-chunk sequential scan: the lanes of every chromosome's chunks, all
@@ -720,11 +722,14 @@ def find_seeds_all(dfm: DeviceFMIndex,
     poisoned at a bound and with a full emit buffer ("poisoned_at_bound",
     "poisoned_full": poison_causes); the first round's lane count
     ("scan_lanes"); and with segments the seconds of host reconciliation
-    ("host_s"). With `rounds`, appends each round's scan_lanes arguments
-    and results, (q_rows, starts, stops, prm, st, recs): the tests and the
-    comparison of the kernels with their plain versions scan these lanes
-    again. GSALIGN_SA_MODE picks the SA mode (see pick_sa_mode). plain runs
-    the plain torch versions of the seed-stage kernels (seed_scan,
+    ("host_s"). With `round_s`, appends each round's seconds from its
+    launch to its lane state and records on the host. With `rounds`,
+    appends each round's scan_lanes arguments and results, (q_rows,
+    starts, stops, prm, st, recs): the tests and the comparison of the
+    kernels with their plain versions scan these lanes again, and the
+    tools read each lane's steps (F_STEPS) and records (F_OUT_N) there.
+    GSALIGN_SA_MODE picks the SA mode (see pick_sa_mode). plain runs the
+    plain torch versions of the seed-stage kernels (seed_scan,
     seed_lockstep, resolve_sa) on any device: the comparison with the
     kernels on a card uses it."""
     # a record packs its start's offset from the lane's start and its
@@ -766,8 +771,11 @@ def find_seeds_all(dfm: DeviceFMIndex,
 
     def scan(starts, stops):
         """One round: (st, recs, the records' positions)."""
+        t0 = time.perf_counter()
         st, recs, n_scans = _scan_lanes(dfm, q_rows, starts, stops, prm,
                                         plain, lane_mesh, fm)
+        if round_s is not None:
+            round_s.append(time.perf_counter() - t0)
         if rounds is not None:
             rounds.append((q_rows, starts, stops, prm, st, recs))
         qs = record_starts(starts, st, recs)
@@ -858,7 +866,6 @@ def _segment_lanes(scan, chunk_bounds, chunk, seg_len, slack, n_segments,
     in fixup rounds, with the chunk's end as the real clip. Returns the
     hits' (qs, ls, k0, fr) as lists of arrays; puts the host's seconds in
     log["host_s"]."""
-    import time
     starts, bounds, keys = [], [], []
     for ci, (cs, ce) in enumerate(chunk_bounds):
         for k, p in enumerate(range(cs, ce, seg_len)):
@@ -993,7 +1000,7 @@ def find_seeds(dfm: DeviceFMIndex,
                init12: bool = True,
                **kw):
     """Find all LMEM seeds of one query chromosome (see find_seeds_all;
-    kw: its stats, plain, rounds and fm)."""
+    kw: its stats, plain, rounds, round_s and fm)."""
     return find_seeds_all(
         dfm, [query_codes], min_seed_length=min_seed_length,
         max_seed_freq=max_seed_freq, sensitive=sensitive, chunk=chunk,

@@ -99,6 +99,56 @@ def debug_dump_blocks(blocks, chr_index: ChrLocIndex, obr_pos: int = -1):
             print("End\n")
 
 
+def chain_blocks(q_pos, r_pos, length, qry_chars, ref_chars, chr_index,
+                 genome_size: int, cfg: AlignConfig) -> list:
+    """The chain stages of one query chromosome: its seeds grouped and
+    chained into blocks, overlaps repaired, blocks split at long gaps and
+    at chromosome spans, deduplicated, and their gaps filled."""
+    # S2+S3: grouping + chaining
+    blocks = chain.generate_alignment_blocks(
+        q_pos, r_pos, length, cfg, genome_size)
+
+    # S4: overlap repair
+    for b in blocks:
+        blk_ops.remove_overlaps(b)
+
+    # S5: gap splitting
+    new_blocks = []
+    for b in blocks:
+        subs = blk_ops.check_gaps_between_seeds(b, qry_chars, ref_chars,
+                                                cfg)
+        if subs is None:
+            new_blocks.append(b)
+        else:
+            new_blocks.extend(subs)
+    blocks = blk_ops.remove_bad_blocks(new_blocks)
+
+    # S6: chromosome-span splitting
+    new_blocks = []
+    for b in blocks:
+        subs = blk_ops.check_span_multiple_chrs(b, chr_index, cfg)
+        if subs is None:
+            new_blocks.append(b)
+        else:
+            new_blocks.extend(subs)
+    blocks = blk_ops.remove_bad_blocks(new_blocks)
+
+    # S7: dedup
+    for b in blocks:
+        b.b_dup = False
+    chr_scores = blk_ops.est_chromosome_similarity(blocks, chr_index)
+    blocks = blk_ops.remove_redundant_blocks(blocks, chr_scores, chr_index,
+                                             cfg, axis=1)
+    blocks = blk_ops.remove_redundant_blocks(blocks, chr_scores, chr_index,
+                                             cfg, axis=2)
+
+    # S8: gap fill
+    for b in blocks:
+        if b.score > 0:
+            blk_ops.fill_block_gaps(b)
+    return blocks
+
+
 def compare_genomes(fm: FMIndex,
                     query_records: List,
                     cfg: AlignConfig,
@@ -108,7 +158,8 @@ def compare_genomes(fm: FMIndex,
                     write_vcf_file: bool = True,
                     plot_prefix: Optional[str] = None,
                     mesh=None,
-                    shard_index_rows: bool = False):
+                    shard_index_rows: bool = False,
+                    seed_rounds: Optional[list] = None):
     """Run the full comparison. query_records: [(name, ascii uint8[]), ...].
 
     With a mesh (parallel/mesh.Mesh) the seed lanes and the DP problems are
@@ -117,6 +168,9 @@ def compare_genomes(fm: FMIndex,
     sa_samples rows are cut over the entries instead and the seed lanes
     stay whole (mesh.shard_index_rows). The outputs are byte-identical for
     any mesh.
+
+    seed_rounds, a list, receives the seed scan's rounds (find_seeds_all's
+    `rounds` hook): the lanes, their final state and their records.
 
     The two batched device stages — the seed scan and the gap DP — run on
     `device`: the CUDA card when None (an error without one), the CPU for
@@ -190,7 +244,7 @@ def compare_genomes(fm: FMIndex,
             max_seed_freq=cfg.max_seed_freq,
             sensitive=cfg.sensitive,
             chunk=cfg.seed_exploration_chunk,
-            stats=seed_stats, mesh=mesh, fm=fm)
+            stats=seed_stats, mesh=mesh, fm=fm, rounds=seed_rounds)
     stats.seed_scan_iterations = seed_stats["scan_iterations"]
     stats.seed_scan_launches = seed_stats["scan_launches"]
     log(f"\t[seed] {seed_stats['scan_lanes']} lanes, scan iterations per "
@@ -211,48 +265,8 @@ def compare_genomes(fm: FMIndex,
         q_pos, r_pos, length = all_seeds[qc_idx]
 
         with timer.stage("chain"):
-            # S2+S3: grouping + chaining
-            blocks = chain.generate_alignment_blocks(
-                q_pos, r_pos, length, cfg, genome.size)
-
-            # S4: overlap repair
-            for b in blocks:
-                blk_ops.remove_overlaps(b)
-
-            # S5: gap splitting
-            new_blocks = []
-            for b in blocks:
-                subs = blk_ops.check_gaps_between_seeds(b, qry_chars,
-                                                        ref_chars, cfg)
-                if subs is None:
-                    new_blocks.append(b)
-                else:
-                    new_blocks.extend(subs)
-            blocks = blk_ops.remove_bad_blocks(new_blocks)
-
-            # S6: chromosome-span splitting
-            new_blocks = []
-            for b in blocks:
-                subs = blk_ops.check_span_multiple_chrs(b, chr_index, cfg)
-                if subs is None:
-                    new_blocks.append(b)
-                else:
-                    new_blocks.extend(subs)
-            blocks = blk_ops.remove_bad_blocks(new_blocks)
-
-            # S7: dedup
-            for b in blocks:
-                b.b_dup = False
-            chr_scores = blk_ops.est_chromosome_similarity(blocks, chr_index)
-            blocks = blk_ops.remove_redundant_blocks(blocks, chr_scores,
-                                                     chr_index, cfg, axis=1)
-            blocks = blk_ops.remove_redundant_blocks(blocks, chr_scores,
-                                                     chr_index, cfg, axis=2)
-
-            # S8: gap fill
-            for b in blocks:
-                if b.score > 0:
-                    blk_ops.fill_block_gaps(b)
+            blocks = chain_blocks(q_pos, r_pos, length, qry_chars,
+                                  ref_chars, chr_index, genome.size, cfg)
 
         if cfg.debug or cfg.obr_pos >= 0:
             debug_dump_blocks(blocks, chr_index, cfg.obr_pos)

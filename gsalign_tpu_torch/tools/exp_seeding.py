@@ -30,47 +30,25 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import time
 
 import numpy as np
 
-from gsalign_tpu_torch.genome.fasta import read_fasta
-from gsalign_tpu_torch.genome.packing import chars_to_codes
-from gsalign_tpu_torch.index.io import load_index
 from gsalign_tpu_torch.ops import seeding
-from gsalign_tpu_torch.ops.rank import DeviceFMIndex
-from gsalign_tpu_torch.utils.device import resolve_device
-
-
-def pair_dir(root: str, tag: str) -> str:
-    """root/tag, with a bench configuration's pair and index made there
-    where they are missing."""
-    from gsalign_tpu_torch import bench
-    d = os.path.join(root, tag)
-    sizes = {"ecoli_4.6mb": 4_600_000, "yeast_12mb": 12_000_000,
-             "celegans_100mb": 100_000_000, "human_250mb": 250_000_000}
-    if tag in sizes:
-        ref_fa, _ = bench.ensure_data(d, sizes[tag])
-        bench.ensure_index(d, ref_fa)
-    return d
+from gsalign_tpu_torch.tools.common import (add_pair_args, device_of,
+                                            load_pair, pair_dir, sync)
 
 
 def run(d: str, tag: str, n_segments: int, reps: int, device) -> dict:
-    import torch
     from gsalign_tpu_torch.bench import card_info
-    dfm = DeviceFMIndex.from_host(load_index(os.path.join(d, "ref_idx")),
-                                  device)
-    codes = [chars_to_codes(q) for _, q in
-             read_fasta(os.path.join(d, "qry.fa"))]
+    _, dfm, _, codes = load_pair(d, device)
     times, res, stats, rounds = [], None, {}, []
     for r in range(reps + 1):
         stats, rounds = {}, []
         t0 = time.time()
         res = seeding.find_seeds_all(dfm, codes, n_segments=n_segments,
                                      stats=stats, rounds=rounds)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        sync(device)
         dt = time.time() - t0
         if r > 0:                     # run 0 lays out caches and builds
             times.append(dt)
@@ -96,20 +74,15 @@ def run(d: str, tag: str, n_segments: int, reps: int, device) -> dict:
 
 
 def main(argv=None) -> int:
-    from gsalign_tpu_torch.bench import BENCH_DIR
     ap = argparse.ArgumentParser(
         prog="python -m gsalign_tpu_torch.tools.exp_seeding",
         description="Seed-stage wall clock at a number of segments.")
     ap.add_argument("tag", nargs="?", default="yeast_12mb")
     ap.add_argument("n_segments", nargs="?", type=int, default=1)
     ap.add_argument("reps", nargs="?", type=int, default=3)
-    ap.add_argument("--dir", default=BENCH_DIR,
-                    help=f"directory of the pair directories (default "
-                         f"{BENCH_DIR})")
-    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                    help="cuda (default; raises without a card) or cpu")
+    add_pair_args(ap)
     args = ap.parse_args(argv)
-    device = resolve_device(None if args.device == "cuda" else args.device)
+    device = device_of(args)
     out = run(pair_dir(args.dir, args.tag), args.tag, args.n_segments,
               max(1, args.reps), device)
     print(json.dumps(out), flush=True)

@@ -42,11 +42,11 @@ import argparse
 import gc
 import json
 import os
-import subprocess
 import tempfile
 import time
 import numpy as np
 
+from gsalign_tpu_torch.tools.common import card_name
 from gsalign_tpu_torch.utils import trace
 
 DNA = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -168,17 +168,6 @@ def build_index(genome, result: dict, mem: Memory):
     result["build_wall_s"] = round(time.time() - t0, 1)
     result["build_rss_gb"] = mem.peak_gb()
     return fm
-
-
-def card_name(device) -> str:
-    """nvidia-smi's name and power limit of the card, or "cpu"."""
-    if device.type != "cuda":
-        return "cpu"
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader", "-i", str(device.index or 0)],
-        capture_output=True, text=True, check=True, timeout=60)
-    return smi.stdout.strip().splitlines()[0]
 
 
 def lay_out_tables(fm, device, result: dict, mem: Memory) -> None:

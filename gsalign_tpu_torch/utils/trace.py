@@ -49,11 +49,12 @@ class StageTimer:
 @contextlib.contextmanager
 def device_trace(trace_dir: Optional[str] = None):
     """Capture a torch.profiler trace (CPU, plus CUDA when a card is
-    present) into trace_dir (or GSALIGN_TRACE) as a Chrome trace file.
-    No-op otherwise."""
+    present) into trace_dir (or GSALIGN_TRACE) as a Chrome trace file, and
+    yield the profiler (device_ops reads it after the block). No-op,
+    yielding None, otherwise."""
     trace_dir = trace_dir or os.environ.get("GSALIGN_TRACE")
     if not trace_dir:
-        yield
+        yield None
         return
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -62,9 +63,30 @@ def device_trace(trace_dir: Optional[str] = None):
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(trace_dir, exist_ok=True)
     with profile(activities=acts) as prof:
-        yield
+        yield prof
     prof.export_chrome_trace(os.path.join(
         trace_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+def device_ops(prof) -> dict:
+    """The device operations (kernels, copies, sets) of a finished
+    torch.profiler profile: their count ("n"), the seconds in which at
+    least one ran ("busy_s", the union of their intervals), and per name
+    [count, microseconds] ("ops")."""
+    from torch.autograd import DeviceType
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ops: Dict[str, list] = {}
+    for e in dev:
+        op = ops.setdefault(e.name, [0, 0.0])
+        op[0] += 1
+        op[1] += e.time_range.elapsed_us()
+    busy_us, end = 0.0, float("-inf")
+    for lo, hi in sorted((e.time_range.start, e.time_range.end)
+                         for e in dev):
+        if hi > end:
+            busy_us += hi - max(lo, end)
+            end = hi
+    return {"n": len(dev), "busy_s": busy_us / 1e6, "ops": ops}
 
 
 class Laps:

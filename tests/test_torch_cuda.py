@@ -1,7 +1,8 @@
 """The hand-written kernels (DP, masked_gather, seed_scan, seed_lockstep
 and as one iteration of it seed_step, resolve_sa, and the row decode alone,
 occ_rows) against their plain torch versions on a CUDA card, on narrow and
-wide indexes. Every test skips
+wide indexes, and the five stage probes of gsalign_tpu_torch/tools/ on the
+bench's 4.6 Mb pair. Every test skips
 without a card. This file imports no JAX, so it runs on a machine without
 it:
 
@@ -770,3 +771,96 @@ def test_threads_share_a_mesh_of_four_entries_on_one_card(card, monkeypatch,
         with open(one + ext, "rb") as a, open(two + ext, "rb") as b:
             assert [ln for ln in a if not ln.startswith(b"##reference")] \
                 == [ln for ln in b if not ln.startswith(b"##reference")]
+
+
+@pytest.fixture(scope="module")
+def pair_46(tmp_path_factory):
+    """The bench's 4.6 Mb pair (ecoli_4.6mb) and its index, made once by
+    tools/common.pair_dir; skips without a card before making anything."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from gsalign_tpu_torch.tools.common import pair_dir
+    return pair_dir(str(tmp_path_factory.mktemp("probes")), "ecoli_4.6mb")
+
+
+def launched_in(fn, *args, **kw):
+    """(fn's result, each kernel wrapper's launches inside it)."""
+    from gsalign_tpu_torch.bench import kernel_wrappers
+    wrappers = kernel_wrappers()
+    n0 = {k: w.launches for k, w in wrappers.items()}
+    res = fn(*args, **kw)
+    return res, {k: w.launches - n0[k] for k, w in wrappers.items()}
+
+
+@pytest.mark.cuda
+def test_exp_seedprof_on_card(card, pair_46, tmp_path):
+    """exp_seedprof at 4.6 Mb: the first round holds the bench's 460 seed
+    lanes, through seed_scan; the traced last run gives a device busy
+    share."""
+    from gsalign_tpu_torch.tools import exp_seedprof
+    prof, n = launched_in(exp_seedprof.profile, pair_46, "ecoli_4.6mb", 2,
+                          card, trace_dir=str(tmp_path))
+    rounds = prof["reps"][-1]["rounds"]
+    assert rounds[0]["lanes"] == 460 and rounds[0]["steps"] > 0
+    assert n["seed_scan"] == 2 * len(rounds)
+    assert 0 < prof["trace"]["busy_share"] <= 1 and prof["trace"]["top"]
+    assert prof["card"].startswith(torch.cuda.get_device_name(card))
+
+
+@pytest.mark.cuda
+def test_seed_stats_on_card(card, pair_46):
+    """seed_stats at 4.6 Mb: a round a chromosome, 460 lanes in all, each
+    through seed_scan."""
+    from gsalign_tpu_torch.tools import seed_stats
+    st, n = launched_in(seed_stats.stats_of, pair_46, card)
+    assert sum(r["B"] for r in st["rounds"]) == 460
+    assert st["total_max_iters"] == sum(r["max_iter"] for r in st["rounds"])
+    assert n["seed_scan"] == 2 * len(st["rounds"])
+
+
+@pytest.mark.cuda
+def test_exp_seedab_on_card(card, pair_46):
+    """exp_seedab at 4.6 Mb: the same seeds with INIT-12 off, in no fewer
+    steps."""
+    from gsalign_tpu_torch.tools import exp_seedab
+    ab, n = launched_in(exp_seedab.ab, pair_46, "ecoli_4.6mb", card)
+    on, off = ab["rows"]
+    assert on["same"] and off["same"] and off["iters"] >= on["iters"] > 0
+    assert n["seed_scan"] > 0
+
+
+@pytest.mark.cuda
+def test_exp_dphist_on_card(card, pair_46):
+    """exp_dphist at 4.6 Mb: the JAX record's counts, a [dp_stats] line,
+    the seed and DP kernels launched."""
+    from gsalign_tpu_torch.bench import JAX_RECORD
+    from gsalign_tpu_torch.tools import exp_dphist
+    hist, n = launched_in(exp_dphist.dphist, pair_46, "ecoli_4.6mb", card)
+    assert tuple(hist["counts"]) == JAX_RECORD["ecoli_4.6mb"]
+    assert hist["dp_stats"].startswith("[dp_stats] L64:n=")
+    assert hist["lanes"] >= 460 and hist["max"] >= hist["mean"] > 0
+    assert n["seed_scan"] > 0 and n["dp_small"] + n["dp_any"] > 0
+
+
+@pytest.mark.cuda
+def test_exp_align_on_card(card, pair_46):
+    """exp_align at 4.6 Mb: n_dp is the sum of its buckets and of its
+    recorded launches' problems, each launch timed by CUDA events; every
+    recorded launch's kernel gives the plain version's ops on its inputs."""
+    from gsalign_tpu_torch.tools import exp_align
+    inputs = []
+    aln, n = launched_in(exp_align.probe, pair_46, "ecoli_4.6mb", 2, card,
+                         inputs=inputs)
+    for rep in aln["reps"]:
+        assert rep["n_dp"] == sum(rep["buckets"].values()) \
+            == sum(ln["B"] for ln in rep["launches"]) > 0
+        assert all(ln["ms"] > 0 for ln in rep["launches"])
+        assert rep["dp_event_ms"] > 0
+    assert n["dp_small"] + n["dp_any"] == sum(len(r["launches"])
+                                              for r in aln["reps"])
+    assert len(inputs) == len(aln["reps"][-1]["launches"])
+    for kernel, (L, q, t, ql, tl) in inputs:
+        got = getattr(dp_cuda, kernel)(q, t, ql, tl, L).cpu().numpy()
+        want = tdp.dp_align_batch(q, t, ql.clamp(0, L), tl.clamp(0, L),
+                                  L).cpu().numpy()
+        assert max_abs_err(got, want) == 0
