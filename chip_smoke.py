@@ -15,6 +15,12 @@ Run from the root of a checkout, on a machine with a CUDA card:
                                      # and at 250 Mb (about 10 min)
     python3 chip_smoke.py shard-times  # phase 1, the row-sharded seed
                                      # kernels timed at 4, 8 and 16 blocks
+    python3 chip_smoke.py seedcost [OLD_TREE]  # phase 1, then phase 11 in
+                                     # full: exp_seedcost at 4.6, 12
+                                     # (wide), 100 and 250 Mb, exp_sweep's
+                                     # grid; with OLD_TREE (an unpacked
+                                     # older tree's gsalign_tpu_torch/csrc)
+                                     # seed_scan in both in turns
     python3 chip_smoke.py 3gb [LEN]  # phase 1, then config 5 (3.1 Gb, or
                                      # LEN bases) through tools/run_3gb,
                                      # whole and over 8 row blocks, and its
@@ -106,7 +112,15 @@ Phases (each raises on failure; nothing is caught):
      exp_align held against the plain version (ops equal) and timed
      against its bound, one [dp] line each; seed_scan on the first round's
      lanes against the plain scan and its bound. The probes mode runs it
-     at 100 and 250 Mb (human_250mb).
+     at 100 and 250 Mb (human_250mb);
+ 11. the cost probes (gsalign_tpu_torch/tools/exp_seedcost, exp_sweep;
+     kernels seedcost and gather_sweep, csrc/probe.cu) through the tools'
+     functions, the counts set to 0 just before and read just after:
+     exp_seedcost on phase 4's 4.6 Mb index at B 512, K 50, exp_sweep over
+     8 and 64 MB; then every seedcost instance (pieces 0-5 narrow; 0-3 on
+     phase 5's forced-wide index) and both gather_sweep forms held against
+     their plain versions on the same inputs (acc, checksum, planes; the
+     sums and last indices), each with its bound.
 wide-big: a 1,080,000,000-base random genome (2N = 2.16e9 > 2^31; the
 JAX package's tests/test_wide_e2e.py), its index built once; a 200 kb
 query seeded (coordinates past 2^31, seeds equal to the text), seed_scan
@@ -130,6 +144,16 @@ and out.maf and out.vcf bytes, the sharded instances alone launched. Once
 that process has exited, a second one restores the saved index (run_3gb
 --index --entries 8), lays it out and aligns over the 8 row blocks: the
 same counts and the same out.maf and out.vcf bytes.
+seedcost: exp_seedcost at B 512 and at the main path's lanes (460, 1,200,
+10,001, 25,000), K 500, on the bench's 4.6, 100 and 250 Mb pairs (made by
+processes started at once) and the 12 Mb forced-wide index, every
+instance against its plain version on the same inputs with its bound, the
+instances' registers and resident warps an SM beside seed_scan's; then
+exp_sweep's whole grid, each point against plain at K 20. Given an older
+tree, its csrc/seed.cu is built with this tree's flags, its machine code
+compared with this tree's kernel by kernel, and seed_scan run through
+both libraries in turns (P, C, C, P, twice) on the first round's lanes at
+12 Mb sa_intv=8 and 100 Mb, each result equal to the plain scan's.
 shard-times: seed_scan and resolve_sa over 4, 8 and 16 row blocks of the
 card on the 12 Mb sampled and forced-wide indexes, each beside the
 whole-table instance in turns; a cut that the kernels refuse is printed
@@ -487,13 +511,15 @@ def phase_100kb():
 
 def counters():
     """Every kernel wrapper, by kernel name."""
-    from gsalign_tpu_torch.ops import dp_cuda, gather, seed_cuda
+    from gsalign_tpu_torch.ops import dp_cuda, gather, probe, seed_cuda
     return {"dp_small": dp_cuda.dp_small, "dp_any": dp_cuda.dp_any,
             "masked_gather": gather.masked_gather,
             "seed_scan": seed_cuda.seed_scan,
             "seed_lockstep": seed_cuda.seed_lockstep,
             "seed_step": seed_cuda.seed_step,
-            "resolve_sa": seed_cuda.resolve_sa}
+            "resolve_sa": seed_cuda.resolve_sa,
+            "seedcost": probe.seedcost,
+            "gather_sweep": probe.gather_sweep}
 
 
 # the kernels with a row-sharded instance (csrc/seed.cu ShardedTable),
@@ -2835,6 +2861,356 @@ def phase_sweep():
         dp_cuda.small_plan, dp_cuda.any_plan = small_plan, any_plan
 
 
+# ---- the seed step's cost probes (csrc/probe.cu; tools/exp_seedcost,
+# tools/exp_sweep): instruments, off every align path ----
+
+# the bench configurations the seedcost mode reads, and the lanes of each
+# one's main-path scan round (a lane a 10 kb chunk; PERF.md §4-5)
+SEEDCOST_TAGS = ("ecoli_4.6mb", "celegans_100mb", "human_250mb")
+MAIN_LANES = {"ecoli_4.6mb": 460, "yeast_12mb": 1200,
+              "celegans_100mb": 10_001, "human_250mb": 25_000}
+SEEDCOST_K = 500             # the JAX tool's default K
+SEEDCOST_MAX_OUT = 128       # and max_out
+SHORT_K = 50                 # the default run's short phase
+# integer operations of one lane-iteration of each seedcost body: the look
+# update (4); the three query-word reads and the metadata decode (40); the
+# two class-row reads and their selects (12); two ranks (RANK_OPS each); the
+# 16-word compare, ballot and find-first-set (100); the record (8)
+PIECE_OPS = (4, 44, 56, 56 + 2 * RANK_OPS, 156 + 2 * RANK_OPS,
+             164 + 2 * RANK_OPS)
+SWEEP_OPS = 6                # a gather_sweep step: read, multiply-add, mod
+# bytes of a table row each probe reads: a query row (both planes), a
+# comb_pairs entry, the tool's 128-word text row
+SEEDCOST_ROW_BYTES = {"q_rows": 256, "comb": 8, "t3_major": MAJOR_ROW_BYTES,
+                      "text_rows": 512}
+
+
+def distinct(parts) -> int:
+    """Distinct values over a list of index tensors."""
+    import torch
+    return int(torch.unique(torch.cat([p.reshape(-1) for p in parts]))
+               .numel())
+
+
+def seedcost_plain_work(dfm, q_rows, piece: int, B: int, K: int):
+    """(the plain version's result, its ms, the body's bound): each table
+    row it reads counted once (SEEDCOST_ROW_BYTES, t3 rows at their width),
+    acc, chk and out_n written once, and a record's 9 bytes; PIECE_OPS a
+    lane-iteration."""
+    from gsalign_tpu_torch.ops import probe
+    reads = {}
+    out, plain_ms = timed(lambda: probe.seedcost_plain(
+        dfm, q_rows, piece, B, K, SEEDCOST_MAX_OUT, reads=reads))
+    row_bytes = dict(SEEDCOST_ROW_BYTES, t3=4 * dfm.t3.shape[1])
+    n_bytes = sum(distinct(v) * row_bytes[k] for k, v in reads.items())
+    n_bytes += 12 * B + 9 * int(out.out_n.clamp(max=SEEDCOST_MAX_OUT).sum())
+    return out, plain_ms, bound(n_bytes, PIECE_OPS[piece] * B * K)
+
+
+def seedcost_equal(what: str, got, want) -> None:
+    import torch
+    for name in ("acc", "chk", "out_meta", "out_k0", "out_fr", "out_n"):
+        if not torch.equal(getattr(got, name), getattr(want, name)):
+            raise AssertionError(f"seedcost {what}: {name} differs from the "
+                                 f"plain version")
+
+
+def seedcost_readings(tag: str, dfm, q_rows, B: int, K: int) -> dict:
+    """Every seedcost instance the index allows at B lanes and K
+    iterations: its µs an iteration by the tool's measure (best of 3
+    launches), its result held against the plain version's on the same
+    inputs, and its bound. One [seedcost] line each; returns {piece:
+    {us, ms, plain_ms, bound_ms, bound_by}}."""
+    from gsalign_tpu_torch.tools import exp_seedcost
+    res = exp_seedcost.measure(dfm, q_rows, B, K, SEEDCOST_MAX_OUT,
+                               dfm.t3.device)
+    out = {}
+    for piece, us in res["us"].items():
+        if us is None:
+            say(f"[seedcost] {tag} B={B} K={K}: {exp_seedcost.label(piece)}"
+                f" - (no text rows: the index is not direct)")
+            continue
+        want, plain_ms, bnd = seedcost_plain_work(dfm, q_rows, piece, B, K)
+        seedcost_equal(f"{tag} B={B} piece {piece}", res["outs"][piece], want)
+        ms = us * K / 1e3
+        out[piece] = {"us": us, "ms": ms, "plain_ms": plain_ms, **bnd}
+        say(f"[seedcost] {tag} B={B} K={K}: {exp_seedcost.label(piece)} "
+            f"{us:.4f} us/iter (kernel {ms:.4f} ms, "
+            f"{100 * bnd['bound_ms'] / ms:.2f} % of its bound "
+            f"{bnd['bound_ms']:.5f} ms by {bnd['bound_by']}; plain "
+            f"{plain_ms:.1f} ms); equal to plain (acc, chk, planes)")
+    return out
+
+
+def say_occupancy(tag: str, wide: bool) -> dict:
+    from gsalign_tpu_torch.config import AlignConfig
+    from gsalign_tpu_torch.ops import probe
+    occ = probe.occupancy(wide, AlignConfig().seed_exploration_chunk)
+    say(f"[seedcost] {tag} ({'wide' if wide else 'narrow'} rows): registers "
+        f"a thread / resident warps an SM: " + ", ".join(
+            f"{k} {v['regs']} / {v['warps_per_sm']}" for k, v in occ.items()))
+    return occ
+
+
+def sweep_check(ta, tb, B: int, K: int, n: int, got=None):
+    """gather_sweep against the plain version on the same inputs: (plain
+    ms, bound): each table word read once, 4 bytes (two tables: 8), the
+    start indices read and acc and the last index written."""
+    import torch
+    from gsalign_tpu_torch.ops import probe
+    idx0 = probe.sweep_start(B, n, ta.device)
+    if got is None:
+        got = probe.gather_sweep(ta, tb, idx0, K, n)
+    reads = []
+    want, plain_ms = timed(lambda: probe.gather_sweep_plain(
+        ta, tb, idx0, K, n, reads=reads))
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError(f"gather_sweep B={B} n={n} "
+                             f"{'two' if tb is not None else 'one'}: differs "
+                             f"from the plain version")
+    words = distinct(reads) * (2 if tb is not None else 1)
+    return plain_ms, bound(4 * words + 12 * B, SWEEP_OPS * B * K)
+
+
+def sweep_rows(mbs, dev) -> list:
+    """exp_sweep's grid over the table sizes mbs, each point held against
+    the plain version at K 20 (K 300 for the 64 MB two-table point, the
+    kernels line's), one [sweep] line each."""
+    import torch
+    from gsalign_tpu_torch.tools import exp_sweep
+    rows = []
+
+    def on_row(row, res):
+        n = row["mb"] * (1 << 20) // 4
+        table = torch.arange(n, dtype=torch.int32, device=dev)
+        two = row["form"] == "two-call"
+        ta, tb, m = (table[:n // 2], table[n // 2:], n // 2) if two \
+            else (table, None, n)
+        full = two and row["mb"] == 64
+        k = exp_sweep.K if full else 20
+        got = (res["acc"], res["idx"]) if full else None
+        plain_ms, bnd = sweep_check(ta, tb, row["B"], k, m, got)
+        if full:
+            row.update(plain_ms=plain_ms, **bnd)
+        say(f"[sweep] {exp_sweep.line(row)}; B x K = "
+            f"{row['B'] * exp_sweep.K} dependent reads in "
+            f"{row['us'] * exp_sweep.K / 1e3:.4f} ms: "
+            f"{row['B'] / row['us']:.1f} reads/us; equal to plain at K {k}")
+        rows.append(row)
+    exp_sweep.sweep(dev, mbs, on_row=on_row)
+    return rows
+
+
+def phase_seedcost(d46: str, d12: str, dev=None) -> dict:
+    """Phase 11: the two probes on the 4.6 Mb pair of phase 4 (its index
+    idx) and phase 5's forced-wide 12 Mb index, at a short K. Their path,
+    the tools' functions (exp_seedcost.measure at B 512, K SHORT_K;
+    exp_sweep.sweep over 8 and 64 MB), runs with the counts set to 0 just
+    before and read just after; then every seedcost instance (pieces 0-5
+    narrow, 0-3 wide) and both gather_sweep forms against their plain
+    versions. Returns the kernels line's totals and the path's launches."""
+    import torch
+    from gsalign_tpu_torch.ops import probe
+    from gsalign_tpu_torch.tools import exp_seedcost, exp_sweep
+    dev = dev or torch.device("cuda")
+    dfm, q_rows = exp_seedcost.tables(d46, dev, "idx")
+    say_occupancy("4.6mb", False)
+    zero_counts()
+    res = exp_seedcost.measure(dfm, q_rows, 512, SHORT_K, SEEDCOST_MAX_OUT,
+                               dev)
+    sweep = exp_sweep.sweep(dev, (8, 64))
+    launches = {k: n for k, n in launch_counts().items()
+                if k in ("seedcost", "gather_sweep")}
+    say(f"[seedcost] the tools' run: launches {launches}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a probe kernel did not launch: {launches}")
+    per = seedcost_readings("4.6mb", dfm, q_rows, 512, SHORT_K)
+    if set(per) != set(range(len(probe.PIECES))):
+        raise AssertionError("seedcost: a narrow piece is missing")
+    del dfm, q_rows
+    dfmw, qw = exp_seedcost.tables(d12, dev, "idxw")
+    say_occupancy("12mb wide", True)
+    seedcost_readings("12mb wide", dfmw, qw, 512, 20)
+    del dfmw, qw
+    n = 64 * (1 << 20) // 4
+    table = torch.arange(n, dtype=torch.int32, device=dev)
+    for two in (False, True):
+        m = n // 2 if two else n
+        sweep_check(table[:m], table[m:] if two else None, 4096, 20, m)
+    two64 = [r for r in sweep if r["mb"] == 64 and r["form"] == "two-call"][0]
+    plain_ms, bnd = sweep_check(table[:n // 2], table[n // 2:], 4096,
+                                exp_sweep.K, n // 2)
+    del table
+    say("[sweep] " + "; ".join(exp_sweep.line(r) for r in sweep)
+        + "; every form equal to plain")
+    top = per[len(probe.PIECES) - 1]
+    return {"launches": launches, "totals": {
+        "seedcost": {"ms": top["ms"], "plain_ms": top["plain_ms"],
+                     "max_abs_err": 0, "bound_ms": top["bound_ms"],
+                     "bound_by": top["bound_by"]},
+        "gather_sweep": {"ms": two64["us"] * exp_sweep.K / 1e3,
+                         "plain_ms": plain_ms, "max_abs_err": 0, **bnd}}}
+
+
+def parent_seed_lib(parent: str):
+    """(nvcc process, library path) of a parent tree's csrc/seed.cu, built
+    with this tree's flags into WORK; None without a parent."""
+    from gsalign_tpu_torch.ops import cuda_build
+    if parent is None:
+        return None
+    src = os.path.join(parent, "gsalign_tpu_torch", "csrc", "seed.cu")
+    if not os.path.exists(src):
+        raise RuntimeError(f"no {src}")
+    os.makedirs(WORK, exist_ok=True)
+    out = os.path.join(WORK, "parent_seed.so")
+    return subprocess.Popen([cuda_build._find_nvcc()] + cuda_build._NVCC_FLAGS
+                            + ["-o", out, src], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True), out
+
+
+def load_parent_lib(build):
+    import ctypes
+    from gsalign_tpu_torch.ops import seed_cuda
+    proc, path = build
+    _, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"the parent's seed.cu did not build:\n{err}")
+    lib = ctypes.CDLL(path)
+    for fn in ("gsalign_seed_scan",):
+        getattr(lib, fn).argtypes = seed_cuda.SIGNATURES[fn]
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def scan_turns(tag: str, dfm, queries, libs: dict, reps: int = 5) -> None:
+    """seed_scan on the first round's lanes through each library of libs
+    ({"C": this tree's, "P": the parent's}) in turns P, C, C, P, P, C, C,
+    P, each turn `reps` launches with their read-back on fresh lanes; every
+    result equal to the plain scan's. One [scan-times] line: the change is
+    within the parent's spread where the two trees' mean turns differ by
+    no more than the parent's slowest and fastest turns do."""
+    import ctypes
+    import torch
+    from gsalign_tpu_torch.ops import cuda_build, seed_cuda, seeding
+    args = first_round(dfm, queries)
+    q_rows, _, _, prm = args
+    ref = fresh_lanes(args)
+    ref_st = seeding.seed_scan_plain(dfm, q_rows, ref, prm)
+
+    def scan(lib, lanes):
+        win = seed_cuda._win_words(lanes.max_len)
+        a = seed_cuda._seed_args(dfm, q_rows, lanes, prm, win_words=win,
+                                 step_cap=seed_cuda._step_cap(lanes.max_emit,
+                                                              lanes.max_len))
+        cuda_build.raise_on(lib.gsalign_seed_scan(
+            ctypes.byref(a), cuda_build.stream(q_rows.device)), "seed_scan")
+        return seed_cuda.scan_result(lanes, a.step_cap)
+    times = {"P": [], "C": []}
+    for key in ("P", "C", "C", "P") * 2:
+        batch = [fresh_lanes(args) for _ in range(reps)]
+        ms = []
+        for lanes in batch:
+            st, t = timed(lambda: scan(libs[key], lanes))
+            ms.append(t)
+            if not (np.array_equal(st, ref_st)
+                    and torch.equal(lanes.out, ref.out)):
+                raise AssertionError(f"seed_scan {tag} ({key}): differs from "
+                                     f"the plain scan")
+        times[key].append(sum(ms) / reps)
+    p, c = times["P"], times["C"]
+    spread = max(p) - min(p)
+    change = sum(c) / len(c) - sum(p) / len(p)
+    say(f"[scan-times] seed_scan {tag}, {len(args[1])} lanes, {reps} "
+        f"launches a turn with their read-back, turns P, C, C, P, P, C, C, "
+        f"P: parent {', '.join(f'{t:.4f}' for t in p)} ms, this tree "
+        f"{', '.join(f'{t:.4f}' for t in c)} ms; the change {change:+.4f} "
+        f"ms beside the parent's spread {spread:.4f} ms: "
+        f"{'within' if abs(change) <= spread else 'outside'}; equal to "
+        f"plain")
+
+
+def sass_compare(parent_path: str) -> None:
+    """The machine code (cuobjdump -sass) of every kernel in the parent's
+    seed library against this tree's, function by function (by name, less
+    the anonymous namespace's per-build tag): one [scan-times] line saying
+    which are identical."""
+    from gsalign_tpu_torch.ops import cuda_build
+    tool = os.path.join(os.path.dirname(cuda_build._find_nvcc()), "cuobjdump")
+
+    def functions(path):
+        text = subprocess.run([tool, "-sass", path], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+        out, name = {}, None
+        for ln in text.splitlines():
+            if "Function : " in ln:
+                name = re.sub(r"\d+_GLOBAL__N__[0-9a-f]{8}_\d+_seed_cu_"
+                              r"[0-9a-f]{8}", "ANON",
+                              ln.split("Function : ")[1].strip())
+                out[name] = []
+            elif name is not None and ln.strip():
+                out[name].append(ln.strip())
+        return out
+    old = functions(parent_path)
+    new = functions(cuda_build.build_info["seed"]["path"])
+    same = sorted(f for f in old if new.get(f) == old[f])
+    differ = sorted(f for f in old if f in new and new[f] != old[f])
+    say(f"[scan-times] seed.cu machine code, parent against this tree: "
+        f"{len(same)} of {len(old)} kernels identical, {len(differ)} differ "
+        f"({', '.join(differ) or 'none'}), {len(set(new) - set(old))} new "
+        f"({', '.join(sorted(set(new) - set(old))) or 'none'})")
+
+
+def phase_seedcost_full(build) -> None:
+    """The seedcost mode (module docstring), after phase 1."""
+    import torch
+    from gsalign_tpu_torch.ops import seed_cuda, seeding
+    from gsalign_tpu_torch.tools import exp_seedcost, exp_sweep
+    dev = torch.device("cuda")
+    preps = {tag: start_pair(tag) for tag in SEEDCOST_TAGS}
+    try:
+        libs = {"C": seed_cuda.build()}
+        if build is not None:
+            libs["P"] = load_parent_lib(build)
+            sass_compare(build[1])
+        d12 = make_data("12mb", 12_000_000)
+        sampled_indexes(d12)
+        dfmw, qw = exp_seedcost.tables(d12, dev, "idxw")
+        say_occupancy("12mb wide", True)
+        for B in (512, MAIN_LANES["yeast_12mb"]):
+            seedcost_readings("12mb wide", dfmw, qw, B, SEEDCOST_K)
+        del dfmw, qw
+        if "P" in libs:
+            dfm8, q8 = load_case("12mb", "idx8")
+            scan_turns("12mb-sa8", dfm8, q8, libs)
+            del dfm8
+        for tag in SEEDCOST_TAGS:
+            proc, started = preps[tag]
+            if proc.wait(timeout=1500) != 0:
+                raise RuntimeError(f"{tag}: making the pair and index "
+                                   f"exited {proc.returncode}")
+            say(f"[seedcost] {tag}: pair and index ready "
+                f"{time.time() - started:.1f} s after their process started")
+            dfm, queries = load_case(tag, "ref_idx")
+            q_rows = seeding.build_qrows(torch.from_numpy(
+                np.concatenate(queries)).to(dev))
+            say(f"[seedcost] {tag}: tables comb "
+                f"{dfm.comb_pairs.numel() * 8 / 1e6:.1f} MB, t3 "
+                f"{dfm.t3.numel() * 4 / 1e6:.1f} MB, q_rows "
+                f"{q_rows.numel() * 4 / 1e6:.1f} MB, text "
+                f"{dfm.text_rows.numel() * 4 / 1e6:.1f} MB")
+            if tag == SEEDCOST_TAGS[0]:
+                say_occupancy(tag, False)
+            for B in (512, MAIN_LANES[tag]):
+                seedcost_readings(tag, dfm, q_rows, B, SEEDCOST_K)
+            if tag == "celegans_100mb" and "P" in libs:
+                scan_turns(tag, dfm, queries, libs)
+            del dfm, q_rows, queries
+            torch.cuda.empty_cache()
+        sweep_rows(exp_sweep.GRID_MB, dev)
+    finally:
+        stop(p for p, _ in preps.values())
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2916,6 +3292,22 @@ def main() -> int:
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
         return 0
+    if sys.argv[1:2] == ["seedcost"] and len(sys.argv) <= 3:
+        # the probes at 4.6, 12 (wide), 100 and 250 Mb and the sweep grid;
+        # with a parent tree, seed_scan in it and here in turns. No result
+        # lines.
+        parent = sys.argv[2] if len(sys.argv) == 3 else None
+        build = None
+        try:
+            build = parent_seed_lib(parent)
+            phase_card()
+            phase_seedcost_full(build)
+        finally:
+            if build is not None and build[0].poll() is None:
+                build[0].kill()
+                build[0].wait()
+            shutil.rmtree(WORK, ignore_errors=True)
+        return 0
     if sys.argv[1:] in (["seed"], ["segments"]):
         # the seed-stage kernels alone, or the segments phase alone: build,
         # the 4.6 Mb and 12 Mb data and indexes, kernel against plain. No
@@ -2958,6 +3350,9 @@ def main() -> int:
         phase(phase_profile)
         tools = phase(phase_tools, os.path.join(WORK, "4.6mb"))
         probes = phase(phase_probes, PROBE_TAGS[0], prep)
+        costs = phase(phase_seedcost, os.path.join(WORK, "4.6mb"),
+                      os.path.join(WORK, "12mb"))
+        totals.update(costs["totals"])
     finally:
         if prep is not None:
             stop([prep[0]])
@@ -3030,6 +3425,14 @@ def main() -> int:
               "gsalign_tpu/ops/seeding.py:674",
               mesh["runs"]["12mb-wide-rows"]["launches"][
                   "resolve_sa_sharded"], kernel="resolve_sa"),
+        # the probes (phase 11): their launches in the tools' run, their
+        # times of piece 5 at 4.6 Mb (B 512, K SHORT_K) and of the 64 MB
+        # two-table sweep (B 4096, K 300)
+        entry("seedcost", "probe.cu", "tools/exp_seedcost.py:66",
+              costs["launches"]["seedcost"], piece=5, B=512, K=SHORT_K),
+        entry("gather_sweep", "probe.cu", "tools/exp_sweep.py:43",
+              costs["launches"]["gather_sweep"], table_mb=64, tables=2,
+              B=4096, K=300),
     ]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

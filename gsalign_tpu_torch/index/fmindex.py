@@ -440,3 +440,111 @@ def _build_t3_index(t3: np.ndarray, n: int, cp_dtype=np.int32,
     if np.little_endian:
         t3_packed.byteswap(inplace=True)
     return t3_packed, t3_cp
+
+
+# ---- host-side (numpy) reference queries, used by tests ----
+
+def occ4_np(fm: FMIndex, k: int) -> np.ndarray:
+    """Counts of each base in B'[0..k_adj] — mirrors bwt_occ4
+    (src/bwt_search.cpp:69-86). k == -1 returns zeros."""
+    if k == -1:
+        return np.zeros(4, dtype=np.int64)
+    ka = k - (1 if k >= fm.primary else 0)
+    block = ka >> 7
+    cnt = fm.occ_cp[block].astype(np.int64).copy()
+    word0 = block * WORDS_PER_BLOCK
+    widx = (ka >> 4) & 7
+    words = fm.bwt_packed[word0: word0 + WORDS_PER_BLOCK]
+    m_in_word = (ka & 15) + 1
+    for j in range(WORDS_PER_BLOCK):
+        if j > widx:
+            break
+        m = 16 if j < widx else m_in_word
+        w = int(words[j])
+        for pos in range(m):
+            cnt[(w >> ((15 - pos) * 2)) & 3] += 1
+    return cnt
+
+
+def bwt_code_at_np(fm: FMIndex, x: int) -> int:
+    w = int(fm.bwt_packed[x >> 4])
+    return (w >> ((~x & 15) << 1)) & 3
+
+
+def occ1_np(fm: FMIndex, k: int, c: int) -> int:
+    """Single-char occ — mirrors bwt_occ (src/bwt_search.cpp:45-67)."""
+    if k == fm.seq_len:
+        return int(fm.l2[c + 1] - fm.l2[c])
+    if k == -1:
+        return 0
+    return int(occ4_np(fm, k)[c])
+
+
+def inv_psi_np(fm: FMIndex, k: int) -> int:
+    """bwt_invPsi (src/bwt_search.cpp:121-127)."""
+    x = k - (1 if k > fm.primary else 0)
+    c = bwt_code_at_np(fm, x)
+    x = int(fm.l2[c]) + occ1_np(fm, k, c)
+    return 0 if k == fm.primary else x
+
+
+def _t3_sym_np(fm: FMIndex, j: int) -> int:
+    w = int(fm.t3_packed[j >> 2])
+    return (w >> ((3 - (j & 3)) * 8)) & 0xFF
+
+
+def rank64_np(fm: FMIndex, c: int, k: int) -> int:
+    """# rows j in [0, k) with triple-symbol c (exceptions excluded)."""
+    block = k // T3_BLOCK
+    cnt = int(fm.t3_cp[block, c])
+    for j in range(block * T3_BLOCK, k):
+        if _t3_sym_np(fm, j) == c:
+            cnt += 1
+    if c == 0:
+        cnt -= int((fm.t3_exc_pos < k).sum())
+    return cnt
+
+
+def rank1_t3_np(fm: FMIndex, c: int, k: int) -> int:
+    """# rows j in [0, k) whose true preceding char is c, via the T3 table
+    (sym & 3 == c plus the SA<3 exception corrections)."""
+    block = k // T3_BLOCK
+    cnt = int(fm.t3_cp[block].reshape(16, 4)[:, c].sum())
+    for j in range(block * T3_BLOCK, k):
+        if _t3_sym_np(fm, j) & 3 == c:
+            cnt += 1
+    for pos, ch in zip(fm.t3_exc_pos, fm.t3_exc_chr):
+        if pos < k:
+            if c == 0:
+                cnt -= 1           # stored sym 0 wrongly counted
+            if ch == c:
+                cnt += 1           # true preceding char
+    return cnt
+
+
+def extend_rc_t3_np(fm: FMIndex, ik1: int, ik2: int, b1: int, b2: int,
+                    b3: int):
+    """Append bases (b1, b2, b3) to P by backward-extending RC(P) with the
+    triple (comp(b3), comp(b2), comp(b1)). Returns (new_ik1, new_ik2)."""
+    c = (3 - b3) * 16 + (3 - b2) * 4 + (3 - b1)
+    lo = rank64_np(fm, c, ik1)
+    hi = rank64_np(fm, c, ik1 + ik2)
+    return int(fm.c64[c]) + lo, hi - lo
+
+
+def extend_rc_single_np(fm: FMIndex, ik1: int, ik2: int, b1: int):
+    """Append one base to P via the T3 table's single-char ranks."""
+    c = 3 - b1
+    lo = rank1_t3_np(fm, c, ik1)
+    hi = rank1_t3_np(fm, c, ik1 + ik2)
+    return int(fm.l2[c]) + 1 + lo, hi - lo
+
+
+def sa_lookup_np(fm: FMIndex, k: int) -> int:
+    """bwt_sa (src/bwt_search.cpp:129-139): LF-walk to a sampled rank."""
+    sa = 0
+    mask = fm.sa_intv - 1
+    while k & mask:
+        sa += 1
+        k = inv_psi_np(fm, k)
+    return (sa + int(fm.sa_samples[k // fm.sa_intv])) % (fm.seq_len + 1)

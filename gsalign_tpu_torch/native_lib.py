@@ -69,6 +69,14 @@ def get_lib() -> Optional[ctypes.CDLL]:
                 np.ctypeslib.ndpointer(np.dtype(f"int{bits}"),
                                        flags="C_CONTIGUOUS"),
                 ctypes.c_int]
+        for suf, it in (("i32", np.int32), ("i64", np.int64)):
+            fn = getattr(lib, f"par_gather_u16_{suf}")
+            fn.restype = None
+            fn.argtypes = [
+                np.ctypeslib.ndpointer(np.uint16, flags="C_CONTIGUOUS"),
+                np.ctypeslib.ndpointer(it, flags="C_CONTIGUOUS"),
+                np.ctypeslib.ndpointer(np.uint16, flags="C_CONTIGUOUS"),
+                ctypes.c_int64, ctypes.c_int]
         lib.sais_marks.restype = ctypes.c_int64
         lib.sais_marks.argtypes = [ctypes.c_void_p, ctypes.c_int64]
         lib.sais_marks_clear.restype = None
@@ -201,6 +209,25 @@ def sais_marks() -> list:
 
 def default_threads() -> int:
     return max(1, os.cpu_count() or 1)
+
+
+def gather_u16(src: np.ndarray, idx: np.ndarray,
+               threads: Optional[int] = None) -> Optional[np.ndarray]:
+    """out[i] = src[idx[i]], multithreaded. None if the lib is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    src = np.ascontiguousarray(src, dtype=np.uint16)
+    out = np.empty(idx.shape[0], dtype=np.uint16)
+    nt = threads or default_threads()
+    if idx.dtype == np.int32:
+        lib.par_gather_u16_i32(src, np.ascontiguousarray(idx), out,
+                               idx.shape[0], nt)
+    else:
+        lib.par_gather_u16_i64(
+            src, np.ascontiguousarray(idx, dtype=np.int64), out,
+            idx.shape[0], nt)
+    return out
 
 
 def c8_counts(text: np.ndarray,

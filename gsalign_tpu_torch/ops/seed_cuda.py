@@ -99,6 +99,8 @@ SIGNATURES = {
                                      ctypes.POINTER(ctypes.c_int)],
     "gsalign_resolve_sa": [ctypes.POINTER(_ResolveArgs), _vp],
     "gsalign_occ_rows": [ctypes.POINTER(_OccArgs), _vp],
+    "gsalign_seed_scan_occupancy": [_ll, _ll, ctypes.POINTER(ctypes.c_int),
+                                    ctypes.POINTER(ctypes.c_int)],
     "gsalign_enable_peer": [ctypes.c_int]}
 
 

@@ -25,6 +25,21 @@ from gsalign_tpu_torch.pipeline.chain import Block
 _GAP = ord("-")
 
 
+def count_identical(a1: np.ndarray, a2: np.ndarray) -> int:
+    """CountIdenticalPairs (src/ProcessCandidateAlignment.cpp:38-47):
+    nt4-code equality, so N matches N and '-' (both code 4)."""
+    return int((NT4_TABLE[a1] == NT4_TABLE[a2]).sum())
+
+
+def fragpair_mismatch(ref_chars: np.ndarray, qry_chars: np.ndarray,
+                      r_pos: int, q_pos: int, length: int) -> int:
+    """CheckFragPairMismatch (src/ProcessCandidateAlignment.cpp:49-61):
+    query-N positions are skipped."""
+    rf = NT4_TABLE[ref_chars[r_pos:r_pos + length]]
+    qf = NT4_TABLE[qry_chars[q_pos:q_pos + length]]
+    return int(((qf != 4) & (qf != rf)).sum())
+
+
 def _segment_indices(starts: np.ndarray, lens: np.ndarray) -> np.ndarray:
     """Concatenated [starts[i], starts[i]+lens[i]) ranges: ONE repeat of the
     (start - flat offset) deltas plus an in-place arange add (hot path of
@@ -168,3 +183,24 @@ def finish_alignments(blocks: List[Block], dp_jobs, ops_list,
             blk.aln_len += e - s
             blk.score += int(per_ident[k])
 
+
+def generate_alignments(blocks: List[Block], qry_chars: np.ndarray,
+                        ref_chars: np.ndarray, cfg, dp_fn=None, device=None,
+                        mesh=None) -> None:
+    """Fill aln rows for DP pairs; set per-block score/aln_len.
+
+    One-chromosome convenience wrapper over plan / ops/dp.FragmentAligner /
+    finish (compare_genomes pools DP fragments across chromosomes
+    instead). cfg is an AlignConfig (its dp_buckets and dp_batch_cells);
+    dp_fn, device and mesh are FragmentAligner's: device None is the card
+    and raises without one, "cpu" asks for the CPU."""
+    dp_jobs, ref_frags, qry_frags = plan_alignments(blocks, qry_chars,
+                                                    ref_chars)
+    ops_list = []
+    if dp_jobs:
+        aligner = dp_ops.FragmentAligner(
+            bucket_sizes=cfg.dp_buckets, batch_cells=cfg.dp_batch_cells,
+            dp_fn=dp_fn, device=device, mesh=mesh)
+        aligner.submit(ref_frags, qry_frags)
+        ops_list = aligner.finish()
+    finish_alignments(blocks, dp_jobs, ops_list, qry_chars, ref_chars)

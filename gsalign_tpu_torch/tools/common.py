@@ -12,6 +12,7 @@ from __future__ import annotations
 import argparse
 import os
 import subprocess
+import time
 
 import numpy as np
 import torch
@@ -55,6 +56,26 @@ def sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def device_ms(fn, device) -> float:
+    """Milliseconds of one fn() (which launches kernels): on a card by CUDA
+    events, the launches queued behind a spin kernel (about 0.2 ms) so that
+    the events read the card and not the host's call; on the CPU by the
+    host clock."""
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(350_000)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize(device)
+    return start.elapsed_time(end)
+
+
 def card_name(device) -> str:
     """nvidia-smi's name and power limit of the card, or "cpu"."""
     if device.type != "cuda":
@@ -66,14 +87,14 @@ def card_name(device) -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
-def load_pair(d: str, device):
+def load_pair(d: str, device, index: str = "ref_idx"):
     """(host index, its device tables, query records, query codes) of the
-    pair directory d."""
+    pair directory d, with the index d/<index>."""
     from gsalign_tpu_torch.genome.fasta import read_fasta
     from gsalign_tpu_torch.genome.packing import chars_to_codes
     from gsalign_tpu_torch.index.io import load_index
     from gsalign_tpu_torch.ops.rank import DeviceFMIndex
-    fm = load_index(os.path.join(d, "ref_idx"))
+    fm = load_index(os.path.join(d, index))
     dfm = DeviceFMIndex.from_host(fm, device)
     records = read_fasta(os.path.join(d, "qry.fa"))
     return fm, dfm, records, [chars_to_codes(q) for _, q in records]

@@ -50,6 +50,8 @@ inline cudaError_t cudaGetLastError() { return 0; }
 inline cudaError_t cudaGetDevice(int* dev) { *dev = 0; return 0; }
 inline cudaError_t cudaDeviceEnablePeerAccess(int, unsigned) { return cudaErrorPeerAccessAlreadyEnabled; }
 inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) { *v = 5; return 0; }
+struct cudaFuncAttributes { int numRegs; };
+template <class K> cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, K) { a->numRegs = 32; return 0; }
 template <class K> cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) { *n = 2; return 0; }
 
 struct ShimWarp {

@@ -6,15 +6,15 @@ import os
 import pytest
 import torch
 
-from gsalign_tpu_torch.ops import cuda_build, gather, seed_cuda, seeding
+from gsalign_tpu_torch.ops import cuda_build, gather, probe, seed_cuda, seeding
 from tests.torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 
 def test_every_kernel_source_is_built():
     srcs = cuda_build.sources()
-    assert set(srcs) == {"dp", "gather", "seed"}
+    assert set(srcs) == {"dp", "gather", "probe", "seed"}
     paths = {n: cuda_build._lib_path(p) for n, p in srcs.items()}
-    assert len(set(paths.values())) == 3
+    assert len(set(paths.values())) == 4
     for name, path in paths.items():
         assert os.path.dirname(path) == cuda_build._BUILD_DIR
         assert os.path.basename(path).startswith(f"libgsalign_{name}_")
@@ -67,6 +67,11 @@ def test_wrappers_refuse_other_devices():
         seed_cuda.seed_step(None, None, lanes, None)
     with pytest.raises(TypeError):
         seed_cuda.resolve_sa(None, torch.zeros(3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="unsupported device"):
+        probe.seedcost(None, torch.zeros(4, 64, dtype=torch.int32,
+                                         device="meta"), 0, 4, 2, 1)
+    with pytest.raises(ValueError, match="unsupported device"):
+        probe.gather_sweep(t, None, t, 2, 8)
 
 
 def test_bind_sets_each_entry_point_once(monkeypatch, tmp_path):

@@ -1,8 +1,9 @@
 """The hand-written kernels (DP, masked_gather, seed_scan, seed_lockstep
 and as one iteration of it seed_step, resolve_sa, and the row decode alone,
 occ_rows) against their plain torch versions on a CUDA card, on narrow and
-wide indexes, and the five stage probes of gsalign_tpu_torch/tools/ on the
-bench's 4.6 Mb pair. Every test skips
+wide indexes, the five stage probes of gsalign_tpu_torch/tools/ on the
+bench's 4.6 Mb pair, and the cost probes (seedcost, gather_sweep) against
+their plain versions and through exp_seedcost and exp_sweep. Every test skips
 without a card. This file imports no JAX, so it runs on a machine without
 it:
 
@@ -864,3 +865,75 @@ def test_exp_align_on_card(card, pair_46):
         want = tdp.dp_align_batch(q, t, ql.clamp(0, L), tl.clamp(0, L),
                                   L).cpu().numpy()
         assert max_abs_err(got, want) == 0
+
+
+@pytest.fixture(scope="module")
+def probe_case():
+    """A 200 kb make_pair's query rows and its reference's indexes on the
+    card, narrow (direct) and forced-wide."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from make_testdata import make_pair
+    from gsalign_tpu_torch.genome.packing import chars_to_codes, pack_genome
+    ref, qry = make_pair(total_len=200_000)
+    codes = np.concatenate([chars_to_codes(q) for _, q in qry])
+    codes[5000:5040] = 4
+    q_rows = seeding.build_qrows(torch.from_numpy(codes).cuda())
+    g = pack_genome(ref)
+    return q_rows, {wide: rank.DeviceFMIndex.from_host(
+        build_fmindex(g, force_wide=wide), "cuda") for wide in (False, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+def test_seedcost_matches_plain_on_card(card, probe_case, wide):
+    """Every seedcost instance of the layout against seedcost_plain on the
+    same inputs: acc, checksum, planes and records equal."""
+    from gsalign_tpu_torch.ops import probe
+    q_rows, tables = probe_case
+    dfm = tables[wide]
+    for piece in range(len(probe.PIECES)):
+        if wide and piece in probe.TEXT_PIECES:
+            continue
+        n0 = probe.seedcost.launches
+        got = probe.seedcost(dfm, q_rows, piece, 300, 40, 16)
+        torch.cuda.synchronize()
+        assert probe.seedcost.launches == n0 + 1
+        want = probe.seedcost_plain(dfm, q_rows, piece, 300, 40, 16)
+        for name in ("acc", "chk", "out_meta", "out_k0", "out_fr", "out_n"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), \
+                (piece, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("two", [False, True], ids=["one", "two"])
+def test_gather_sweep_matches_plain_on_card(card, two):
+    from gsalign_tpu_torch.ops import probe
+    n_all = 16 << 20                       # a 64 MB table
+    t = torch.arange(n_all, dtype=torch.int32, device=card)
+    n = n_all // 2 if two else n_all
+    ta, tb = (t[:n], t[n:]) if two else (t, None)
+    idx0 = probe.sweep_start(4096, n, card)
+    n0 = probe.gather_sweep.launches
+    got = probe.gather_sweep(ta, tb, idx0, 60, n)
+    assert probe.gather_sweep.launches == n0 + 1
+    want = probe.gather_sweep_plain(ta, tb, idx0, 60, n)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_exp_seedcost_and_exp_sweep_on_card(card, pair_46):
+    """The two tools at 4.6 Mb and on an 8 MB table: every piece timed,
+    the occupancy readings of each instance and of seed_scan read."""
+    from gsalign_tpu_torch.ops import probe
+    from gsalign_tpu_torch.tools import exp_seedcost, exp_sweep
+    out = exp_seedcost.cost(pair_46, "ecoli_4.6mb", 512, 50, 128, card)
+    assert all(us > 0 for us in out["us"].values())
+    occ = out["occupancy"]
+    assert {f"seedcost{p}" for p in range(6)} | {"seed_scan"} <= set(occ)
+    assert all(r["regs"] > 0 and r["warps_per_sm"] > 0 for r in occ.values())
+    n0 = probe.gather_sweep.launches
+    rows = exp_sweep.sweep(card, (8,))
+    assert [r["form"] for r in rows] == ["one-call"] * 3 + ["two-call"]
+    assert all(r["us"] > 0 for r in rows)
+    assert probe.gather_sweep.launches == n0 + 4 * 4

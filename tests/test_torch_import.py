@@ -19,7 +19,7 @@ def port_modules():
 
 def test_importing_every_port_module_leaves_jax_out():
     mods = port_modules()
-    for kernels in ("dp_cuda", "gather", "seed_cuda", "cuda_build"):
+    for kernels in ("dp_cuda", "gather", "seed_cuda", "probe", "cuda_build"):
         assert f"gsalign_tpu_torch.ops.{kernels}" in mods
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in mods)

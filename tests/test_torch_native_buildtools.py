@@ -1,8 +1,7 @@
 """The port's native (C++) build helpers (gsalign_tpu_torch/native_lib.py)
 against their numpy formulations and against the JAX package's
 native_lib on the same inputs: tests/test_native_buildtools.py's cases for
-every helper the port carries (it carries no gather_u16: nothing in
-either package calls that one), and the suffix array and the order-12
+every helper the port carries, and the suffix array and the order-12
 histogram beside them."""
 
 import numpy as np
@@ -26,6 +25,15 @@ def both(name, *args, **kw):
         assert g.dtype == w.dtype
         np.testing.assert_array_equal(g, w)
     return got
+
+
+def test_gather_u16():
+    rng = np.random.default_rng(0)
+    src = rng.integers(0, 2**16, 10_000).astype(np.uint16)
+    for dt in (np.int32, np.int64):
+        idx = rng.integers(0, src.shape[0], 50_000).astype(dt)
+        out = both("gather_u16", src, idx, threads=3)
+        assert np.array_equal(out, src[idx])
 
 
 def test_c8_counts_matches_numpy_keys():

@@ -50,6 +50,7 @@ def host_lib(tmp_path_factory):
                              "cooperative_groups.h"),
                 os.path.join(HERE, "seed_host_rehearsal", "seed_dev.cuh"),
                 os.path.join(cuda_build.CSRC_DIR, "gather_dev.cuh"),
+                os.path.join(cuda_build.CSRC_DIR, "seed_core.cuh"),
                 os.path.join(cuda_build.CSRC_DIR, "seed.cu")):
         shutil.copy(src, d)
     subprocess.run(["g++", "-std=c++20", "-O1", "-pthread", "-shared",
