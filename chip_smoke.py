@@ -1499,19 +1499,22 @@ def segment_runs(tag: str, dfm, queries, sa_mode, slacks=None, base=None,
     bound_ms, bound_by, longest, lanes, steps}}."""
     import torch
     from gsalign_tpu_torch.ops import seed_cuda, seeding
+    from gsalign_tpu_torch.utils import trace
     kernel = "seed_lockstep" if sa_mode == "pallas" else "seed_scan"
     wrapper = getattr(seed_cuda, kernel)
     out, one = {}, None
     runs = [(n, SEG_SLACK) for n in SEGMENTS] + list((slacks or {}).items())
     with sa_mode_env(sa_mode):
         for n, slack in runs:
-            stats, rounds = {}, []
+            stats, rounds, rec = {}, [], trace.Recorder()
             torch.cuda.synchronize()
             t0 = time.time()
-            seeds = seeding.find_seeds_all(dfm, queries, n_segments=n,
-                                           slack=slack, stats=stats,
-                                           rounds=rounds)
+            with trace.bind(rec):
+                seeds = seeding.find_seeds_all(dfm, queries, n_segments=n,
+                                               slack=slack, stats=stats,
+                                               rounds=rounds)
             wall = time.time() - t0
+            lanes_by_round = [len(r[1]) for r in rounds]
             if one is None:
                 one = seeds
             elif any(not np.array_equal(a, b) for x, y in zip(seeds, one)
@@ -1533,13 +1536,13 @@ def segment_runs(tag: str, dfm, queries, sa_mode, slacks=None, base=None,
                 f"{stats['scan_lanes']} lanes, poisoned at a bound "
                 f"{stats['poisoned_at_bound'][0]}, with a full buffer "
                 f"{stats['poisoned_full'][0]}; fixup rounds "
-                f"{len(stats['round_lanes']) - 1} of "
-                f"{stats['round_lanes'][1:]} lanes (poisoned "
+                f"{len(lanes_by_round) - 1} of "
+                f"{lanes_by_round[1:]} lanes (poisoned "
                 f"{stats['poisoned_full'][1:]}); longest lane "
                 f"{stats['scan_iterations'][0]} steps (rounds "
                 f"{stats['scan_iterations']}); round 1 {kernel} {ms:.3f} ms "
                 f"({', '.join(f'{r:.3f}' for r in reps)}); host "
-                f"reconciliation {stats.get('host_s', 0.0):.4f} s; "
+                f"reconciliation {sum(rec.seconds('seed.hits')):.4f} s; "
                 f"find_seeds_all {wall:.3f} s; seeds equal to n_segments=1")
             if n != SEG_CHECKED or slack != SEG_SLACK:
                 continue

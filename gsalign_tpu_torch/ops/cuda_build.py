@@ -4,7 +4,8 @@ Every csrc/*.cu file has a plain C interface and becomes its own shared
 library, compiled with nvcc for sm_90a at first use into this package's
 _build/ directory (git-ignored) and named by a digest of its content, of
 the csrc/*.cuh headers and of the flags. build_all() starts one nvcc per
-missing library, all at once, and waits for them; library(name) returns
+missing library, all at once, and waits for them (counted as
+kernel.builds in the run's recorder, utils/trace); library(name) returns
 one loaded library. A failed build raises: the kernels have no fallback.
 """
 
@@ -19,6 +20,8 @@ import subprocess
 import tempfile
 import threading
 import time
+
+from gsalign_tpu_torch.utils import trace
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -97,6 +100,7 @@ def build_all() -> dict:
                 build_info[name]["ptxas"] = err
             if failed:
                 raise RuntimeError("\n".join(failed))
+            trace.count("kernel.builds", len(running))
         finally:
             for _, _, _, tmp, proc in running:
                 if proc.poll() is None:

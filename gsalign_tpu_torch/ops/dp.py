@@ -19,7 +19,6 @@ gap in Q row), 2=I (consumes Q, gap in T row), 3=pad.
 
 from __future__ import annotations
 
-import collections
 import os
 import sys
 from typing import Tuple
@@ -27,6 +26,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from gsalign_tpu_torch.utils import trace
 from gsalign_tpu_torch.utils.device import resolve_device
 
 MATCH = 1
@@ -184,6 +184,12 @@ class FragmentAligner:
     into contiguous stripes, one dp_fn launch a stripe on its entry's
     device and stream; the pad problems' ops are dropped. The mesh's
     devices replace `device`.
+
+    `buckets` counts, per bucket width, the problems launched and their
+    padded cells (L^2 each), which GSALIGN_DP_STATS=1 prints at finish()
+    ([dp_stats]). The run's recorder (utils/trace) gets their sums as
+    dp.problems and dp.padded_cells, with dp.cells (query length x target
+    length), dp.launches and the bytes copied.
     """
 
     def __init__(self, bucket_sizes=(64, 128, 256, 512, 1024, 2048, 5120),
@@ -200,6 +206,7 @@ class FragmentAligner:
         self.frags: list = []          # (rf, qf) by global index
         self.queue: dict = {}          # Lb -> [global index]
         self.pending: list = []        # (part_idxs, [device ops a stripe])
+        self.buckets: dict = {}        # Lb -> [problems, padded cells]
 
     def submit(self, ref_frags, qry_frags) -> int:
         """Queue fragments; returns the base global index of this batch.
@@ -228,10 +235,20 @@ class FragmentAligner:
             t[bi, :len(qf)] = qf
             ql[bi] = len(rf)
             tl[bi] = len(qf)
+        cells = int(np.dot(ql.astype(np.int64), tl.astype(np.int64)))
+        bucket = self.buckets.setdefault(Lb, [0, 0])
+        bucket[0] += B
+        bucket[1] += B * Lb * Lb
+        trace.count("dp.problems", B)
+        trace.count("dp.cells", cells)
+        trace.count("dp.padded_cells", B * Lb * Lb)
+        trace.copied("h2d.dp", q.nbytes + t.nbytes + ql.nbytes + tl.nbytes,
+                     self.device)
         if self.mesh is None:
             args = [torch.from_numpy(a).to(self.device)
                     for a in (q, t, ql, tl)]
             self.pending.append((list(part), [self.dp_fn(*args, Lb)]))
+            trace.count("dp.launches")
             return
         from gsalign_tpu_torch.parallel import mesh as mesh_lib
         mesh = self.mesh
@@ -242,56 +259,61 @@ class FragmentAligner:
             with mesh.on(i):
                 ops.append(self.dp_fn(*args, Lb))
         self.pending.append((list(part), ops))
+        trace.count("dp.launches", len(ops))
 
     def finish(self) -> list:
         """Launch leftovers, copy every batch's ops to the host in ONE
         transfer, and return per-pair FORWARD-order op arrays by submit
-        order."""
-        for Lb, part in sorted(self.queue.items()):
-            mb = max(1, self.batch_cells // (Lb * Lb))
-            for s in range(0, len(part), mb):
-                self._dispatch(Lb, part[s:s + mb])
-        self.queue = {}
+        order. Spans dp.launch, dp.readback (where the host waits for the
+        device) and dp.unpack."""
+        with trace.span("dp.launch"):
+            for Lb, part in sorted(self.queue.items()):
+                mb = max(1, self.batch_cells // (Lb * Lb))
+                for s in range(0, len(part), mb):
+                    self._dispatch(Lb, part[s:s + mb])
+            self.queue = {}
         if os.environ.get("GSALIGN_DP_STATS"):
-            hist = collections.Counter(
-                bucket_of(max(len(rf), len(qf)), self.bucket_sizes)
-                for rf, qf in self.frags)
             print("[dp_stats] " + " ".join(
-                f"L{Lb}:n={hist[Lb]},Mcells={hist[Lb] * Lb * Lb / 1e6:.0f}"
-                for Lb in sorted(hist)), file=sys.stderr)
+                f"L{Lb}:n={n},Mcells={padded / 1e6:.0f}"
+                for Lb, (n, padded) in sorted(self.buckets.items())),
+                file=sys.stderr)
         results: list = [None] * len(self.frags)
         if not self.pending:
             return results
-        # one copy a device: every stripe's ops on that device, in order
-        by_dev: dict = {}
-        for _, stripes in self.pending:
-            for i, d in enumerate(stripes):
-                by_dev.setdefault(d.device, []).append((i, d))
-        flat = {}
-        for dev, parts in by_dev.items():
-            if self.mesh is not None and dev.type == "cuda":
-                cur = torch.cuda.current_stream(dev)
-                for i, d in parts:
-                    cur.wait_stream(self.mesh.streams[i])
-                    d.record_stream(cur)
-            host = torch.cat([d.reshape(-1) for _, d in parts]).cpu().numpy()
-            flat[dev] = iter(np.split(host, np.cumsum(
-                [d.numel() for _, d in parts])[:-1]))
-        for part, stripes in self.pending:
-            w = stripes[0].shape[1]
-            ops = np.concatenate([next(flat[d.device]) for d in stripes]
-                                 ).reshape(-1, w)[:len(part)]
-            # strip pads + reverse for the whole batch at once: reversing
-            # first keeps the flat extraction in forward order
-            rev = ops[:, ::-1]
-            keep = rev != OP_PAD
-            flat_ops = rev[keep]
-            ends = np.cumsum(keep.sum(axis=1))
-            lo = 0
-            for bi, i in enumerate(part):
-                hi = int(ends[bi])
-                results[i] = flat_ops[lo:hi]
-                lo = hi
+        with trace.span("dp.readback"):
+            # one copy a device: every stripe's ops on that device, in order
+            by_dev: dict = {}
+            for _, stripes in self.pending:
+                for i, d in enumerate(stripes):
+                    by_dev.setdefault(d.device, []).append((i, d))
+            flat = {}
+            for dev, parts in by_dev.items():
+                if self.mesh is not None and dev.type == "cuda":
+                    cur = torch.cuda.current_stream(dev)
+                    for i, d in parts:
+                        cur.wait_stream(self.mesh.streams[i])
+                        d.record_stream(cur)
+                host = torch.cat([d.reshape(-1) for _, d in parts]
+                                 ).cpu().numpy()
+                trace.copied("d2h.dp", host.nbytes, dev)
+                flat[dev] = iter(np.split(host, np.cumsum(
+                    [d.numel() for _, d in parts])[:-1]))
+        with trace.span("dp.unpack"):
+            for part, stripes in self.pending:
+                w = stripes[0].shape[1]
+                ops = np.concatenate([next(flat[d.device]) for d in stripes]
+                                     ).reshape(-1, w)[:len(part)]
+                # strip pads + reverse for the whole batch at once:
+                # reversing first keeps the flat extraction in forward order
+                rev = ops[:, ::-1]
+                keep = rev != OP_PAD
+                flat_ops = rev[keep]
+                ends = np.cumsum(keep.sum(axis=1))
+                lo = 0
+                for bi, i in enumerate(part):
+                    hi = int(ends[bi])
+                    results[i] = flat_ops[lo:hi]
+                    lo = hi
         self.pending = []
         return results
 

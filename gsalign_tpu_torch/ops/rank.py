@@ -44,6 +44,7 @@ import torch
 
 from gsalign_tpu_torch.index.fmindex import (FMIndex, INIT12_MIN_SEQLEN,
                                              WORDS_PER_BLOCK)
+from gsalign_tpu_torch.utils import trace
 from gsalign_tpu_torch.utils.device import resolve_device
 
 UNION_ROW = 16   # uint32 words per row of the single-char rank table
@@ -250,13 +251,18 @@ class DeviceFMIndex:
         with _TABLES_LOCK:
             cache = fm.__dict__.setdefault("_device_tables", {})
             dfm = cache.get(str(dev))
-            if dfm is None:
+            if dfm is not None:
+                trace.count("layout.cache_hits")
+                return dfm
+            trace.count("layout.builds")
+            with trace.span("layout.host_tables"):
                 tabs = DeviceFMIndex.host_tables(fm)
+            with trace.span("layout.upload"):
                 dfm = DeviceFMIndex.from_tables(
                     tabs, host_sa=np.asarray(fm.sa_samples)
                     if tabs["direct_ok"] else None, seq_len=fm.seq_len,
                     primary=fm.primary, device=dev)
-                cache[str(dev)] = dfm
+            cache[str(dev)] = dfm
         return dfm
 
     @staticmethod
@@ -276,6 +282,7 @@ class DeviceFMIndex:
                     raise TypeError(f"{name} must hold 32-bit words, got "
                                     f"{a.dtype}")
                 a, dtype = a.view(np.int32), torch.int32
+            trace.copied("h2d.layout", a.size * dtype.itemsize, dev)
             return torch.tensor(a, dtype=dtype, device=dev)
 
         return DeviceFMIndex(

@@ -83,7 +83,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import time
 from typing import Optional
 
 import numpy as np
@@ -91,6 +90,7 @@ import torch
 
 from gsalign_tpu_torch.ops import rank as rank_ops
 from gsalign_tpu_torch.ops.rank import DeviceFMIndex, M32
+from gsalign_tpu_torch.utils import trace
 
 PHASE_INIT = 0
 PHASE_EXT = 1
@@ -260,6 +260,8 @@ class ScanLanes:
                                    device=device)
 
         buf = up(host)
+        # the state, and starts and bounds: int64 [B] and [3, B]
+        trace.copied("h2d.seed", host.nbytes + 8 * 4 * B, device)
         return ScanLanes(
             starts=up(starts), bounds=up(bounds),
             st=buf[:N_FIELDS * B].view(N_FIELDS, B),
@@ -273,6 +275,7 @@ class ScanLanes:
         """(lane state int64 [N_FIELDS, B], counters int64 [N_COUNTERS]) on
         the host, by one copy: on a card the scan's one synchronisation."""
         host = self.buf.cpu().numpy()
+        trace.copied("d2h.seed", host.nbytes, self.buf.device)
         n = host.shape[0] - N_COUNTERS
         return host[:n].reshape(N_FIELDS, -1), host[n:]
 
@@ -583,7 +586,9 @@ def _records(lanes: ScanLanes, prm: ScanParams) -> np.ndarray:
     """The emitted records on the host, in lane-major order."""
     keep = torch.arange(prm.max_out, device=lanes.st.device)[None, :] \
         < lanes.st[F_OUT_N][:, None]
-    return lanes.out[keep].cpu().numpy()
+    recs = lanes.out[keep].cpu().numpy()
+    trace.copied("d2h.seed", recs.nbytes, lanes.out.device)
+    return recs
 
 
 def _scan_result(pending, prm, plain):
@@ -693,7 +698,6 @@ def find_seeds_all(dfm: DeviceFMIndex,
                    stats: Optional[dict] = None,
                    plain: bool = False,
                    rounds: Optional[list] = None,
-                   round_s: Optional[list] = None,
                    fm=None):
     """Seed ALL query chromosomes, exactly reproducing the reference's
     per-chunk sequential scan: the lanes of every chromosome's chunks, all
@@ -718,20 +722,24 @@ def find_seeds_all(dfm: DeviceFMIndex,
     (PosDiff, qPos), identical to the reference scan. With `stats`, records
     per round the most steps any lane took ("scan_iterations": the
     lock-step loop's iteration count), the scans run ("scan_launches": one
-    a stripe that holds lanes), the lanes ("round_lanes"), and the lanes
-    poisoned at a bound and with a full emit buffer ("poisoned_at_bound",
-    "poisoned_full": poison_causes); the first round's lane count
-    ("scan_lanes"); and with segments the seconds of host reconciliation
-    ("host_s"). With `round_s`, appends each round's seconds from its
-    launch to its lane state and records on the host. With `rounds`,
-    appends each round's scan_lanes arguments and results, (q_rows,
+    a stripe that holds lanes), and the lanes poisoned at a bound and with
+    a full emit buffer ("poisoned_at_bound", "poisoned_full":
+    poison_causes); and the first round's lane count ("scan_lanes"). With
+    `rounds`, appends each round's scan_lanes arguments and results, (q_rows,
     starts, stops, prm, st, recs): the tests and the comparison of the
     kernels with their plain versions scan these lanes again, and the
     tools read each lane's steps (F_STEPS) and records (F_OUT_N) there.
     GSALIGN_SA_MODE picks the SA mode (see pick_sa_mode). plain runs the
     plain torch versions of the seed-stage kernels (seed_scan,
     seed_lockstep, resolve_sa) on any device: the comparison with the
-    kernels on a card uses it."""
+    kernels on a card uses it.
+
+    In the run's recorder (utils/trace): spans seed.lanes, seed.scan (one
+    a round, from the launch to the lane state and records on the host),
+    seed.hits, seed.expand and seed.split (the host's seconds between the
+    rounds); counters seed.rounds,
+    seed.lanes, seed.steps, seed.records, seed.hits, seed.resolved and the
+    bytes h2d.seed, h2d.resolve and d2h.seed."""
     # a record packs its start's offset from the lane's start and its
     # length into 16-bit fields
     if chunk + slack > 0xFFFF:
@@ -739,67 +747,76 @@ def find_seeds_all(dfm: DeviceFMIndex,
                          "emit record")
     if n_segments < 1:
         raise ValueError(f"n_segments must be at least 1, got {n_segments}")
-    sa_mode = pick_sa_mode(dfm)
-    offs = []
-    chunk_bounds = []            # (concat_start, concat_stop) per chunk
-    off = 0
-    for codes in codes_list:
-        L = int(codes.shape[0])
-        n_chunks = max(1, -(-L // chunk))
-        offs.append(off)
-        for c in range(n_chunks):
-            s = off + c * chunk
-            chunk_bounds.append((s, min(s + chunk, off + L)))
-        off += n_chunks * chunk
-    qc = np.full(off, 4, dtype=np.uint8)
-    for codes, o in zip(codes_list, offs):
-        qc[o:o + len(codes)] = codes
-    q_rows = build_qrows(torch.from_numpy(qc).to(dfm.device))
+    with trace.span("seed.lanes"):
+        sa_mode = pick_sa_mode(dfm)
+        offs = []
+        chunk_bounds = []            # (concat_start, concat_stop) per chunk
+        off = 0
+        for codes in codes_list:
+            L = int(codes.shape[0])
+            n_chunks = max(1, -(-L // chunk))
+            offs.append(off)
+            for c in range(n_chunks):
+                s = off + c * chunk
+                chunk_bounds.append((s, min(s + chunk, off + L)))
+            off += n_chunks * chunk
+        qc = np.full(off, 4, dtype=np.uint8)
+        for codes, o in zip(codes_list, offs):
+            qc[o:o + len(codes)] = codes
+        q_rows = build_qrows(torch.from_numpy(qc).to(dfm.device))
+        trace.copied("h2d.seed", qc.nbytes, dfm.device)
+        del qc      # its pages go back here, in the span, not at return
 
-    # a lane records starts over one segment at most
-    seg_len = max(1, chunk // n_segments)
-    hard_max = seg_len // (5 if sensitive else (min_seed_length + 1)) + 2
-    if max_out_cap is None:
-        max_out_cap = 512 if sensitive else 96
-    max_out = min(hard_max, max(2, max_out_cap))
-    prm = ScanParams(min_seed_length=min_seed_length,
-                     max_seed_freq=max_seed_freq, sensitive=sensitive,
-                     max_out=max_out, sa_mode=sa_mode, init12=init12)
+        # a lane records starts over one segment at most
+        seg_len = max(1, chunk // n_segments)
+        hard_max = seg_len // (5 if sensitive else (min_seed_length + 1)) + 2
+        if max_out_cap is None:
+            max_out_cap = 512 if sensitive else 96
+        max_out = min(hard_max, max(2, max_out_cap))
+        prm = ScanParams(min_seed_length=min_seed_length,
+                         max_seed_freq=max_seed_freq, sensitive=sensitive,
+                         max_out=max_out, sa_mode=sa_mode, init12=init12)
     lane_mesh = None if dfm.row_shards is not None else mesh
-    log = {"scan_iterations": [], "scan_launches": [], "round_lanes": [],
+    log = {"scan_iterations": [], "scan_launches": [],
            "poisoned_at_bound": [], "poisoned_full": []}
 
     def scan(starts, stops):
-        """One round: (st, recs, the records' positions)."""
-        t0 = time.perf_counter()
-        st, recs, n_scans = _scan_lanes(dfm, q_rows, starts, stops, prm,
-                                        plain, lane_mesh, fm)
-        if round_s is not None:
-            round_s.append(time.perf_counter() - t0)
+        """One round (span seed.scan, its records' positions seed.hits):
+        (st, recs, the records' positions)."""
+        with trace.span("seed.scan"):
+            st, recs, n_scans = _scan_lanes(dfm, q_rows, starts, stops, prm,
+                                            plain, lane_mesh, fm)
+        log.setdefault("scan_lanes", len(starts))
         if rounds is not None:
             rounds.append((q_rows, starts, stops, prm, st, recs))
-        qs = record_starts(starts, st, recs)
-        log["scan_iterations"].append(int(st[F_STEPS].max())
-                                      if len(starts) else 0)
-        log["scan_launches"].append(n_scans)
-        log["round_lanes"].append(len(starts))
-        for key, n in zip(("poisoned_at_bound", "poisoned_full"),
-                          poison_causes(st, qs, max_out)):
-            log[key].append(n)
+        with trace.span("seed.hits"):
+            qs = record_starts(starts, st, recs)
+            log["scan_iterations"].append(int(st[F_STEPS].max())
+                                          if len(starts) else 0)
+            log["scan_launches"].append(n_scans)
+            for key, n in zip(("poisoned_at_bound", "poisoned_full"),
+                              poison_causes(st, qs, max_out)):
+                log[key].append(n)
+            trace.count("seed.rounds")
+            trace.count("seed.lanes", len(starts))
+            trace.count("seed.steps", int(st[F_STEPS].sum()))
+            trace.count("seed.records", len(recs))
         return st, recs, qs
 
     if n_segments == 1:
         hits = _chunk_lanes(scan, chunk_bounds, chunk, max_out)
     else:
         hits = _segment_lanes(scan, chunk_bounds, chunk, seg_len, slack,
-                              n_segments, max_out, sensitive, log)
+                              n_segments, max_out, sensitive)
     if stats is not None:
         stats.update(log)
-        stats["scan_lanes"] = log["round_lanes"][0]
-    q_pos, r_pos, length = _expand_hits(
-        dfm, *(np.concatenate(h) if h else np.zeros(0, np.int64)
-               for h in hits), plain)
-    return _split_per_chromosome(q_pos, r_pos, length, codes_list, offs)
+    with trace.span("seed.expand"):
+        flat = [np.concatenate(h) if h else np.zeros(0, np.int64)
+                for h in hits]
+        trace.count("seed.hits", len(flat[0]))
+        q_pos, r_pos, length = _expand_hits(dfm, *flat, plain)
+    with trace.span("seed.split"):
+        return _split_per_chromosome(q_pos, r_pos, length, codes_list, offs)
 
 
 def _chunk_lanes(scan, chunk_bounds, chunk, max_out):
@@ -807,18 +824,20 @@ def _chunk_lanes(scan, chunk_bounds, chunk, max_out):
     seeds are the records below each lane's poison position, plus re-scan
     rounds from the poison positions of lanes whose emit buffer overflowed.
     Returns the hits' (qs, ls, k0, fr) as lists of arrays."""
-    starts = np.asarray([s for s, _ in chunk_bounds], dtype=np.int64)
-    stops = np.asarray([e for _, e in chunk_bounds], dtype=np.int64)
+    with trace.span("seed.lanes"):
+        starts = np.asarray([s for s, _ in chunk_bounds], dtype=np.int64)
+        stops = np.asarray([e for _, e in chunk_bounds], dtype=np.int64)
     hits = ([], [], [], [])
     # each round advances an overflowing lane by >= max_out hits
     for _round in range(2 + -(-chunk // max(1, max_out))):
         st, recs, qs = scan(starts, stops)
-        poison = st[F_POISON]
-        keep = qs < np.repeat(poison, st[F_OUT_N])
-        for h, col in zip(hits, (qs, recs[:, 0] >> 16, recs[:, 1],
-                                 recs[:, 2])):
-            h.append(col[keep])
-        pend = np.flatnonzero(poison != POISON_NONE)
+        with trace.span("seed.hits"):
+            poison = st[F_POISON]
+            keep = qs < np.repeat(poison, st[F_OUT_N])
+            for h, col in zip(hits, (qs, recs[:, 0] >> 16, recs[:, 1],
+                                     recs[:, 2])):
+                h.append(col[keep])
+            pend = np.flatnonzero(poison != POISON_NONE)
         if pend.size == 0:
             return hits
         starts = poison[pend]
@@ -859,45 +878,44 @@ def _lanes_of(starts, st, recs, qs, sensitive):
 
 
 def _segment_lanes(scan, chunk_bounds, chunk, seg_len, slack, n_segments,
-                   max_out, sensitive, log):
+                   max_out, sensitive):
     """n_segments > 1: round 1 scans a lane from every segment's start,
     each recording over its segment and extending to seg_end + slack; then
     the host reconciles (_reconcile) and scans the spans it could not join
     in fixup rounds, with the chunk's end as the real clip. Returns the
-    hits' (qs, ls, k0, fr) as lists of arrays; puts the host's seconds in
-    log["host_s"]."""
+    hits' (qs, ls, k0, fr) as lists of arrays."""
     starts, bounds, keys = [], [], []
-    for ci, (cs, ce) in enumerate(chunk_bounds):
-        for k, p in enumerate(range(cs, ce, seg_len)):
-            starts.append(p)
-            bounds.append((min(p + seg_len, ce),
-                           min(p + seg_len + slack, ce), ce))
-            keys.append((ci, k))
-    starts = np.asarray(starts, dtype=np.int64)
+    with trace.span("seed.lanes"):
+        for ci, (cs, ce) in enumerate(chunk_bounds):
+            for k, p in enumerate(range(cs, ce, seg_len)):
+                starts.append(p)
+                bounds.append((min(p + seg_len, ce),
+                               min(p + seg_len + slack, ce), ce))
+                keys.append((ci, k))
+        starts = np.asarray(starts, dtype=np.int64)
     st, recs, qs = scan(starts, np.asarray(bounds, dtype=np.int64).T)
-    t0 = time.perf_counter()
-    lanes = dict(zip(keys, _lanes_of(starts, st, recs, qs, sensitive)))
+    with trace.span("seed.hits"):
+        lanes = dict(zip(keys, _lanes_of(starts, st, recs, qs, sensitive)))
     hits = ([], [], [], [])
     entry = np.asarray([cs for cs, _ in chunk_bounds], dtype=np.int64)
     done = np.zeros(len(chunk_bounds), dtype=bool)
-    host_s = 0.0
     # the reconciliation passes, and overflow re-scans (each advances an
     # overflowing chunk by >= max_out hits)
     for _round in range(n_segments + 1 + -(-chunk // max(1, max_out))):
-        fixups = _reconcile(lanes, chunk_bounds, seg_len, entry, done, hits)
+        with trace.span("seed.hits"):
+            fixups = _reconcile(lanes, chunk_bounds, seg_len, entry, done,
+                                hits)
         if not fixups:
             break
         f = np.asarray(fixups, dtype=np.int64)          # ci, k, e, emit, ce
-        host_s += time.perf_counter() - t0
         # the fixup lanes clip at the chunk's end: never poisoned at a
         # bound, though a full emit buffer still poisons
         st, recs, qs = scan(f[:, 2], f[:, [3, 4, 4]].T)
-        t0 = time.perf_counter()
-        lanes.update(zip(map(tuple, f[:, :2].tolist()),
-                         _lanes_of(f[:, 2], st, recs, qs, sensitive)))
+        with trace.span("seed.hits"):
+            lanes.update(zip(map(tuple, f[:, :2].tolist()),
+                             _lanes_of(f[:, 2], st, recs, qs, sensitive)))
     else:
         raise RuntimeError("seed reconciliation did not converge")
-    log["host_s"] = host_s + time.perf_counter() - t0
     return hits
 
 
@@ -978,6 +996,9 @@ def _expand_hits(dfm: DeviceFMIndex, qs, ls, k0, fr, plain: bool = False):
         resolve = rank_ops.resolve_sa if plain else seed_cuda.resolve_sa
         rc_pos = resolve(dfm, torch.from_numpy(ranks).to(dfm.device)
                          ).cpu().numpy()
+        trace.count("seed.resolved", ranks.size)
+        trace.copied("h2d.resolve", ranks.nbytes, dfm.device)
+        trace.copied("d2h.seed", rc_pos.nbytes, dfm.device)
     lens = ls[rep].astype(np.int64)
     # direct-extension hits carry a pre-resolved occurrence position
     # encoded as k0 = -(r_start+1) (always freq 1); the other ranks index
@@ -1000,7 +1021,7 @@ def find_seeds(dfm: DeviceFMIndex,
                init12: bool = True,
                **kw):
     """Find all LMEM seeds of one query chromosome (see find_seeds_all;
-    kw: its stats, plain, rounds, round_s and fm)."""
+    kw: its stats, plain, rounds and fm)."""
     return find_seeds_all(
         dfm, [query_codes], min_seed_length=min_seed_length,
         max_seed_freq=max_seed_freq, sensitive=sensitive, chunk=chunk,

@@ -22,8 +22,9 @@ round, as the JAX tool reads its last round's finish iterations), and
 the same percentiles of the first round (round1_steps_pct), the
 steps of the longest lane of each round (scan_iterations), the
 lanes of each round, the lanes poisoned at a bound and with a full buffer
-in the first round, the seconds of host reconciliation of the last run,
-and the device with, on a card, its power limit in watts.
+in the first round, the seconds of the host's work on the records of
+the last run's rounds (its seed.hits spans: record positions, keep masks
+and the segments' reconciliation), and the device with, on a card, its power limit in watts.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ import numpy as np
 from gsalign_tpu_torch.ops import seeding
 from gsalign_tpu_torch.tools.common import (add_pair_args, device_of,
                                             load_pair, pair_dir, sync)
+from gsalign_tpu_torch.utils import trace
 
 
 def run(d: str, tag: str, n_segments: int, reps: int, device) -> dict:
@@ -44,10 +46,11 @@ def run(d: str, tag: str, n_segments: int, reps: int, device) -> dict:
     _, dfm, _, codes = load_pair(d, device)
     times, res, stats, rounds = [], None, {}, []
     for r in range(reps + 1):
-        stats, rounds = {}, []
+        stats, rounds, rec = {}, [], trace.Recorder()
         t0 = time.time()
-        res = seeding.find_seeds_all(dfm, codes, n_segments=n_segments,
-                                     stats=stats, rounds=rounds)
+        with trace.bind(rec):
+            res = seeding.find_seeds_all(dfm, codes, n_segments=n_segments,
+                                         stats=stats, rounds=rounds)
         sync(device)
         dt = time.time() - t0
         if r > 0:                     # run 0 lays out caches and builds
@@ -66,10 +69,11 @@ def run(d: str, tag: str, n_segments: int, reps: int, device) -> dict:
         "finish_iter_pct": pct(rounds[-1][4]),
         "round1_steps_pct": pct(rounds[0][4]),
         "scan_iterations": stats["scan_iterations"],
-        "round_lanes": stats["round_lanes"],
+        "round_lanes": [len(rnd[1]) for rnd in rounds],
         "poisoned_at_bound": stats["poisoned_at_bound"][0],
         "poisoned_full": stats["poisoned_full"][0],
-        "host_s": stats.get("host_s", 0.0),
+        # the host's work on the rounds' records (spans seed.hits)
+        "host_s": sum(rec.seconds("seed.hits")),
         "device": name, "power_limit_w": watts}
 
 

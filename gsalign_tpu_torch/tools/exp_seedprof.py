@@ -79,15 +79,17 @@ def profile(d: str, tag: str, reps: int, device,
            "wide": dfm.wide, "tables": tables(dfm), "reps": [],
            "trace": None, "card": card_name(device)}
     for r in range(reps):
-        rounds, round_s = [], []
+        rounds, rec = [], trace.Recorder()
         traced = trace.device_trace(trace_dir) if r == reps - 1 \
             else contextlib.nullcontext()
-        with traced as prof:
+        with traced as prof, trace.bind(rec):
             t0 = time.perf_counter()
-            seeds = seeding.find_seeds_all(dfm, qcodes, rounds=rounds,
-                                           round_s=round_s)
+            seeds = seeding.find_seeds_all(dfm, qcodes, rounds=rounds)
             sync(device)
             total = time.perf_counter() - t0
+        # a round's seconds: its seed.scan span, the launch to the lane
+        # state and records on the host
+        round_s = rec.seconds("seed.scan")
         out["reps"].append({
             "total_s": total, "seeds": sum(len(s[0]) for s in seeds),
             "rounds": [round_row(rnd[4], s)

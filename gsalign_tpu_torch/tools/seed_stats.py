@@ -36,6 +36,7 @@ from gsalign_tpu_torch.ops import seeding
 from gsalign_tpu_torch.tools.common import (add_pair_args, card_name,
                                             device_of, int_percentiles,
                                             load_pair, pair_dir, sync)
+from gsalign_tpu_torch.utils import trace
 
 DEFAULT_TAGS = ("ecoli_4.6mb", "celegans_100mb")
 
@@ -45,16 +46,19 @@ def stats_of(d: str, device) -> dict:
     _, dfm, _, qcodes = load_pair(d, device)
     cfg = AlignConfig()
     for _ in range(2):                  # the first pass is the warm-up
-        rounds, round_s = [], []
+        rounds, rec = [], trace.Recorder()
         t0 = time.perf_counter()
-        for qc in qcodes:
-            seeding.find_seeds(dfm, qc, min_seed_length=cfg.min_seed_length,
-                               chunk=cfg.seed_exploration_chunk,
-                               rounds=rounds, round_s=round_s)
+        with trace.bind(rec):
+            for qc in qcodes:
+                seeding.find_seeds(dfm, qc,
+                                   min_seed_length=cfg.min_seed_length,
+                                   chunk=cfg.seed_exploration_chunk,
+                                   rounds=rounds)
         sync(device)
         wall = time.perf_counter() - t0
     rows = []
-    for rnd, secs in zip(rounds, round_s):
+    # a round's seconds: its seed.scan span
+    for rnd, secs in zip(rounds, rec.seconds("seed.scan")):
         steps = rnd[4][seeding.F_STEPS]
         live = steps[steps > 0]
         rows.append({"B": int(steps.size), "fetchwait_s": secs,

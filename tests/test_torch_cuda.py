@@ -457,8 +457,6 @@ def test_segments_match_plain_on_card(card, monkeypatch, sa_intv, sa_mode,
     for a, b in zip(got, want):
         for x, y in zip(a, b):
             np.testing.assert_array_equal(x, y)
-    for st_ in (stats, plain_stats):
-        st_.pop("host_s")
     assert stats == plain_stats
     assert stats["poisoned_at_bound"][0] > 0 and len(rounds) > 1
     lock = sa_mode == "pallas"

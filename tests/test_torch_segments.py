@@ -24,6 +24,7 @@ from gsalign_tpu_torch.ops import seed_cuda
 from gsalign_tpu_torch.ops import seeding as tseeding
 from gsalign_tpu_torch.ops.rank import DeviceFMIndex
 from gsalign_tpu_torch.parallel import mesh as mesh_lib
+from gsalign_tpu_torch.utils import trace
 from tests.helpers import naive_lmem_seeds, random_genome
 from tests.torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
@@ -70,13 +71,17 @@ def test_segments_match_naive_and_jax(seed, chunk, sensitive, n_segments):
     qry[100:103] = 4
     kw = dict(min_seed_length=12, max_seed_freq=100, sensitive=sensitive,
               chunk=chunk, n_segments=n_segments)
-    stats = {}
-    got = tseeding.find_seeds(dfm, qry, stats=stats, **kw)
+    stats, rec = {}, trace.Recorder()
+    with trace.bind(rec):
+        got = tseeding.find_seeds(dfm, qry, stats=stats, **kw)
     check(fm, got, jseeding.find_seeds(jdfm, qry, **kw), qry, **kw)
     assert stats["scan_lanes"] == sum(-(-min(chunk, 2000 - c) //
                                         (chunk // n_segments))
                                       for c in range(0, 2000, chunk))
-    assert stats["host_s"] >= 0
+    # the host's reconciliation between the rounds is in seed.hits spans
+    assert len(rec.seconds("seed.scan")) == len(stats["scan_iterations"])
+    assert len(rec.seconds("seed.hits")) > len(rec.seconds("seed.scan"))
+    assert min(rec.seconds("seed.hits")) >= 0
 
 
 @pytest.mark.parametrize("slack,n_segments", [(20, 8), (40, 4), (10, 16)])
