@@ -21,6 +21,8 @@ Run from the root of a checkout, on a machine with a CUDA card:
                                      # grid; with OLD_TREE (an unpacked
                                      # older tree's gsalign_tpu_torch/csrc)
                                      # seed_scan in both in turns
+    python3 chip_smoke.py layout     # phases 1 and 12 (the INIT-10 rows
+                                     # built on the card)
     python3 chip_smoke.py 3gb [LEN]  # phase 1, then config 5 (3.1 Gb, or
                                      # LEN bases) through tools/run_3gb,
                                      # whole and over 8 row blocks, and its
@@ -120,7 +122,15 @@ Phases (each raises on failure; nothing is caught):
      8 and 64 MB; then every seedcost instance (pieces 0-5 narrow; 0-3 on
      phase 5's forced-wide index) and both gather_sweep forms held against
      their plain versions on the same inputs (acc, checksum, planes; the
-     sums and last indices), each with its bound.
+     sums and last indices), each with its bound;
+ 12. the INIT-10 rows of comb_pairs (init10_rows, csrc/layout.cu) at the
+     synth_ecoli benchmark configuration's shape (a random genome of
+     NC_000913.3's 4,641,652 bp, 9,283,304 text bases, its full-SA index):
+     the card's layout against the CPU layout (comb_pairs and init_corr
+     equal), the host's layout with and without the histogram, the spans
+     and bytes of from_host on the card; the kernels on the index's text
+     rows against the plain numpy pass (rows equal), timed against their
+     bound, and their device operations under torch.profiler.
 wide-big: a 1,080,000,000-base random genome (2N = 2.16e9 > 2^31; the
 JAX package's tests/test_wide_e2e.py), its index built once; a 200 kb
 query seeded (coordinates past 2^31, seeds equal to the text), seed_scan
@@ -511,8 +521,10 @@ def phase_100kb():
 
 def counters():
     """Every kernel wrapper, by kernel name."""
-    from gsalign_tpu_torch.ops import dp_cuda, gather, probe, seed_cuda
+    from gsalign_tpu_torch.ops import (dp_cuda, gather, layout_cuda, probe,
+                                       seed_cuda)
     return {"dp_small": dp_cuda.dp_small, "dp_any": dp_cuda.dp_any,
+            "init10_rows": layout_cuda.init10_rows,
             "masked_gather": gather.masked_gather,
             "seed_scan": seed_cuda.seed_scan,
             "seed_lockstep": seed_cuda.seed_lockstep,
@@ -785,9 +797,9 @@ def phase_restartable() -> dict:
     laid_out = []
     real = DeviceFMIndex.host_tables
 
-    def counting(fm):
+    def counting(fm, **kw):
         laid_out.append(fm)
-        return real(fm)
+        return real(fm, **kw)
     DeviceFMIndex.host_tables = staticmethod(counting)
     for fn in fns.values():
         fn.launches = 0
@@ -2058,6 +2070,86 @@ def phase_profile():
             say(f"[profile]   {n:6d} x {us / n:8.2f} us  {name[:90]}")
 
 
+ECOLI_LEN = 4_641_652     # the synth_ecoli configuration's genome
+
+
+def phase_layout() -> dict:
+    """Phase 12: init10_rows at the synth_ecoli shape. Returns its totals
+    {init10_rows: {ms, plain_ms, max_abs_err, bound_ms, bound_by}}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from gsalign_tpu_torch.genome.packing import Genome
+    from gsalign_tpu_torch.index.fmindex import build_fmindex
+    from gsalign_tpu_torch.ops import layout_cuda, rank
+    from gsalign_tpu_torch.utils import trace
+    from gsalign_tpu_torch.utils.trace import device_ops
+    rng = np.random.default_rng(18)
+    g = Genome(names=["chr"], lengths=np.asarray([ECOLI_LEN]),
+               offsets=np.zeros(1, np.int64), holes=[],
+               codes_fwd=rng.integers(0, 4, ECOLI_LEN).astype(np.uint8))
+    fm = build_fmindex(g)
+    n, text = fm.seq_len, g.codes_fwd_rc()
+    t0 = time.time()
+    rank.DeviceFMIndex.host_tables(fm)
+    t1 = time.time()
+    rank.DeviceFMIndex.host_tables(fm, card_init10=True)
+    t2 = time.time()
+    rec = trace.Recorder()
+    with trace.bind(rec):
+        dfm = rank.DeviceFMIndex.from_host(fm, "cuda")
+    spans = {name: sum(rec.seconds(name)) for name in (
+        "layout.host_tables", "layout.upload", "layout.init10")}
+    torch.cuda.synchronize()
+    t3 = time.time()
+    cpu = rank.DeviceFMIndex.from_host(fm, "cpu")
+    if not (torch.equal(dfm.comb_pairs.cpu(), cpu.comb_pairs)
+            and torch.equal(dfm.init_corr.cpu(), cpu.init_corr)):
+        raise AssertionError("the card's comb_pairs or init_corr differ "
+                             "from the CPU layout's")
+    say(f"[layout] synth_ecoli shape ({n} text bases, direct {dfm.direct_ok})"
+        f": host_tables {t1 - t0:.4f} s with the histogram, "
+        f"{t2 - t1:.4f} s without; from_host on the card: "
+        + ", ".join(f"{k} {v:.4f} s" for k, v in spans.items())
+        + f" (host clock; {t3 - t2:.4f} s to the synchronise), "
+        f"h2d.layout {rec.counters.get('h2d.layout', 0)} bytes, "
+        f"layout.init10_card {rec.counters.get('layout.init10_card', 0)}; "
+        f"comb_pairs and init_corr equal to the CPU layout's")
+    t0 = time.time()
+    starts, _ = rank._build_c10(text, n)
+    ext = np.append(starts, n + 1).astype(np.uint64)
+    plain = (ext[:-1] | (ext[1:] << np.uint64(32))).view(np.int64)
+    plain_ms = (time.time() - t0) * 1e3
+    rows = torch.empty(layout_cuda.N_KEYS, dtype=torch.int64, device="cuda")
+    text_rows, steps = dfm.text_rows.view(-1), rank._c10_steps(text, n)
+
+    def run():
+        layout_cuda.init10_rows(text_rows, 32, n, steps, rows)
+    run()
+    err = int((rows.cpu().numpy() != plain).sum())
+    if err:
+        raise AssertionError(f"init10_rows: {err} rows differ from plain")
+    ms = cuda_ms(run, reps=50)
+    # the packed text read once, the rows written once; the counts live
+    # in L2 between the passes
+    bnd = bound(n // 4 + 8 * layout_cuda.N_KEYS, 0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            run()
+        torch.cuda.synchronize()
+    dev = device_ops(prof)
+    say(f"[kernel] init10_rows n={n} keys={layout_cuda.N_KEYS}  kernel "
+        f"{ms:10.4f} ms  plain {plain_ms:10.1f} ms  bound "
+        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}: packed text and "
+        f"rows); {n - 9} atomic adds, {(n - 9) / (ms * 1e-3) / 1e9:.2f} G/s;"
+        f" rows equal")
+    for name, (k, us) in sorted(dev["ops"].items(), key=lambda kv: -kv[1][1]):
+        say(f"[profile]   {k:4d} x {us / k:9.2f} us  {name[:90]}")
+    return {"init10_rows": {"ms": ms, "plain_ms": plain_ms,
+                            "max_abs_err": err, "bound_ms": bnd["bound_ms"],
+                            "bound_by": bnd["bound_by"]}}
+
+
 def phase_wide_big():
     """wide-big: the JAX package's tests/test_wide_e2e.py on the card. A
     WIDE_BIG_LEN-base random genome (seed 40; 2N > 2^31), its index built
@@ -3311,6 +3403,11 @@ def main() -> int:
                 build[0].wait()
             shutil.rmtree(WORK, ignore_errors=True)
         return 0
+    if sys.argv[1:] == ["layout"]:
+        # the INIT-10 rows alone (about a minute). No result lines.
+        phase_card()
+        phase_layout()
+        return 0
     if sys.argv[1:] in (["seed"], ["segments"]):
         # the seed-stage kernels alone, or the segments phase alone: build,
         # the 4.6 Mb and 12 Mb data and indexes, kernel against plain. No
@@ -3356,6 +3453,7 @@ def main() -> int:
         costs = phase(phase_seedcost, os.path.join(WORK, "4.6mb"),
                       os.path.join(WORK, "12mb"))
         totals.update(costs["totals"])
+        totals.update(phase(phase_layout))
     finally:
         if prep is not None:
             stop([prep[0]])
@@ -3436,6 +3534,11 @@ def main() -> int:
         entry("gather_sweep", "probe.cu", "tools/exp_sweep.py:43",
               costs["launches"]["gather_sweep"], table_mb=64, tables=2,
               B=4096, K=300),
+        # no TPU kernel: the JAX package builds these rows in host numpy
+        # (gsalign_tpu/ops/rank.py:317 _build_c10); its launches on the
+        # 4.6 Mb main path, its times at the synth_ecoli shape (phase 12)
+        entry("init10_rows", "layout.cu", None, main_path["init10_rows"],
+              host_numpy="gsalign_tpu/ops/rank.py:317"),
     ]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

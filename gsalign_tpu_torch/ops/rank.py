@@ -44,6 +44,7 @@ import torch
 
 from gsalign_tpu_torch.index.fmindex import (FMIndex, INIT12_MIN_SEQLEN,
                                              WORDS_PER_BLOCK)
+from gsalign_tpu_torch.ops import layout_cuda
 from gsalign_tpu_torch.utils import trace
 from gsalign_tpu_torch.utils.device import resolve_device
 
@@ -121,11 +122,17 @@ class DeviceFMIndex:
         return self.t3.device
 
     @staticmethod
-    def host_tables(fm: FMIndex) -> dict:
+    def host_tables(fm: FMIndex, card_init10: bool = False) -> dict:
         """The tables as numpy arrays, in the JAX package's dtypes. An
         index without its genome lays out every table that does not need
         the text, with direct mode off (as the JAX package does); a table
-        that needs the text then raises."""
+        that needs the text then raises.
+
+        card_init10: where the INIT-10 rows would come from the host's
+        histogram of the text (a narrow index of INIT order 10 without a
+        c12 table), leave them out: comb_pairs then ends at INIT_OFF, and
+        "init10" holds what the card needs to build them (with_init10): the
+        step keys and, on an index without text rows, the packed text."""
         wide = fm.rank_dtype == np.int64
         text = []            # the genome's text, made at its first use
 
@@ -198,6 +205,9 @@ class DeviceFMIndex:
             starts_init, steps = _derive_c10(
                 fm.c12[:, 1], need_text("the order-10 jump table"),
                 fm.seq_len)
+        elif card_init10 and not wide:     # small index: on the card
+            text10 = need_text("the order-10 jump table")
+            starts_init, steps = None, _c10_steps(text10, fm.seq_len)
         else:                              # small index: direct histogram
             starts_init, steps = _build_c10(
                 need_text("the order-10 jump table"), fm.seq_len)
@@ -206,8 +216,14 @@ class DeviceFMIndex:
         # lb == 0 only shifts the whole table (no block affected)
         keys = steps[steps > 0] - 1
         corr[:keys.shape[0]] = keys
-        starts_ext = np.concatenate(
-            [starts_init, np.asarray([fm.seq_len + 1], np.int64)])
+        init10 = None
+        if starts_init is None:            # the INIT rows: on the card
+            init10 = {"steps": steps, "words": None if direct_ok
+                      else _text_words(text10)}
+            starts_ext = np.zeros(1, np.int64)  # lo and sz end at INIT_OFF
+        else:
+            starts_ext = np.concatenate(
+                [starts_init, np.asarray([fm.seq_len + 1], np.int64)])
         if wide:
             # values exceed 32 bits: flattened lo and sz planes
             comb = np.concatenate([c8[:, 0], lut[:, 0], c8[:, 1], lut[:, 1],
@@ -227,7 +243,7 @@ class DeviceFMIndex:
             sa_rows = np.zeros(1, dtype=np.int32)
             sa_samples = np.asarray(fm.sa_samples,
                                     dtype=np.int64 if wide else np.int32)
-        return dict(union=union, t3=rows3, t3_major=major3,
+        tabs = dict(union=union, t3=rows3, t3_major=major3,
                     l2=l2, c64=c64,
                     t3_exc_pos=np.asarray(fm.t3_exc_pos, dtype=np.int64),
                     t3_exc_chr=np.asarray(fm.t3_exc_chr, dtype=np.int64),
@@ -235,6 +251,9 @@ class DeviceFMIndex:
                     sa_rows=sa_rows, sa_samples=sa_samples,
                     init_order=init_order, sa_intv=int(fm.sa_intv),
                     direct_ok=direct_ok, wide=wide)
+        if init10 is not None:
+            tabs["init10"] = init10
+        return tabs
 
     @staticmethod
     def from_host(fm: FMIndex, device=None) -> "DeviceFMIndex":
@@ -244,7 +263,11 @@ class DeviceFMIndex:
         The tables are laid out once per index and device and kept on the
         FMIndex (as the JAX package keeps its own): a later call for the
         same `fm` and device returns the same DeviceFMIndex. The layout
-        runs under a lock, so threads that ask at once lay it out once."""
+        runs under a lock, so threads that ask at once lay it out once.
+
+        On a card, the INIT-10 rows of a narrow index of INIT order 10
+        without a c12 table are built there (with_init10), after the
+        upload, in order on the current stream; the host does not wait."""
         dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
@@ -256,12 +279,17 @@ class DeviceFMIndex:
                 return dfm
             trace.count("layout.builds")
             with trace.span("layout.host_tables"):
-                tabs = DeviceFMIndex.host_tables(fm)
+                tabs = DeviceFMIndex.host_tables(
+                    fm, card_init10=dev.type == "cuda")
             with trace.span("layout.upload"):
                 dfm = DeviceFMIndex.from_tables(
                     tabs, host_sa=np.asarray(fm.sa_samples)
                     if tabs["direct_ok"] else None, seq_len=fm.seq_len,
                     primary=fm.primary, device=dev)
+            if "init10" in tabs:
+                with trace.span("layout.init10"):
+                    dfm = with_init10(dfm, tabs["init10"])
+                trace.count("layout.init10_card")
             cache[str(dev)] = dfm
         return dfm
 
@@ -296,6 +324,34 @@ class DeviceFMIndex:
             host_sa=host_sa, seq_len=int(seq_len), primary=int(primary),
             init_order=int(tabs["init_order"]), sa_intv=int(tabs["sa_intv"]),
             direct_ok=bool(tabs["direct_ok"]), wide=wide)
+
+
+def with_init10(dfm: DeviceFMIndex, init10: dict,
+                launch=None) -> DeviceFMIndex:
+    """dfm, whose comb_pairs ends at INIT_OFF (host_tables with
+    card_init10), with the INIT-10 rows built on its device after them by
+    `launch` (layout_cuda.init10_rows; a test passes a host build's launch)
+    from the packed text: text_rows on a direct index, else init10's words,
+    uploaded here (h2d.layout)."""
+    dev = dfm.device
+    if dfm.direct_ok:
+        text, stride = dfm.text_rows.view(-1), 32
+    else:
+        words = init10["words"].view(np.int32)
+        trace.copied("h2d.layout", words.nbytes, dev)
+        text, stride = torch.tensor(words, device=dev), 16
+    comb = torch.empty(comb_rows(10), dtype=torch.int64, device=dev)
+    comb[:INIT_OFF] = dfm.comb_pairs
+    (launch or layout_cuda.init10_rows)(text, stride, dfm.seq_len,
+                                        init10["steps"], comb[INIT_OFF:])
+    return dataclasses.replace(dfm, comb_pairs=comb)
+
+
+def _text_words(text: np.ndarray) -> np.ndarray:
+    """The text's packed words (pack_bwt_codes) and a zero word after them,
+    which the INIT-10 kernel reads beside the last."""
+    from gsalign_tpu_torch.index.fmindex import pack_bwt_codes
+    return np.concatenate([pack_bwt_codes(text), np.zeros(1, np.uint32)])
 
 
 def _wide_rows(t3_cp: np.ndarray, t3_packed: np.ndarray) -> np.ndarray:
@@ -370,14 +426,22 @@ def _c10_from_counts(counts10: np.ndarray, text: np.ndarray, n: int):
     nk = 4 ** 10
     starts10 = np.zeros(nk, dtype=np.int64)
     np.cumsum(counts10[:-1], out=starts10[1:])
+    steps = _c10_steps(text, n)
+    for lb in steps:
+        starts10[lb:] += 1
+    return starts10, steps
+
+
+def _c10_steps(text: np.ndarray, n: int) -> np.ndarray:
+    """The keys lb of the text's suffixes shorter than 10 bases, padded
+    with A, shortest first: each is a +1 on the INIT-10 starts[lb:]."""
     steps = []
     for k in range(0, min(10, n + 1)):     # suffix of length k at n - k
         lb = 0
         for j in range(k):
             lb += int(text[n - k + j]) << (2 * (9 - j))
-        starts10[lb:] += 1
         steps.append(lb)
-    return starts10, np.asarray(steps, dtype=np.int64)
+    return np.asarray(steps, dtype=np.int64)
 
 
 # ---- rank queries (torch, int64 lanes) ----

@@ -1,6 +1,7 @@
 // Host stand-in for cuda_runtime.h, for rehearsing gsalign_tpu_torch/csrc/
-// dp.cu and seed.cu without a CUDA compiler or card: the source is compiled
-// unchanged as C++20 by g++ with this directory first on the include path.
+// dp.cu, seed.cu, probe.cu and layout.cu without a CUDA compiler or card:
+// the source is compiled unchanged as C++20 by g++ with this directory
+// first on the include path.
 // A launch (cudaLaunchKernelEx) runs every CUDA thread of the grid as a
 // std::thread; warp shuffles, votes, reductions and __syncwarp are
 // exchanges through a per-warp array between two std::barrier waits,
@@ -27,6 +28,7 @@
 #include <vector>
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __align__(n)
 #define __launch_bounds__(n)
@@ -47,6 +49,7 @@ struct cudaLaunchAttribute { int id; struct { struct { unsigned x, y, z; } clust
 struct cudaLaunchConfig_t { dim3 gridDim, blockDim; size_t dynamicSmemBytes; cudaStream_t stream; cudaLaunchAttribute* attrs; unsigned numAttrs; };
 template <class K> cudaError_t cudaFuncSetAttribute(K, int, int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
+inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) { std::memset(p, v, n); return 0; }
 inline cudaError_t cudaGetDevice(int* dev) { *dev = 0; return 0; }
 inline cudaError_t cudaDeviceEnablePeerAccess(int, unsigned) { return cudaErrorPeerAccessAlreadyEnabled; }
 inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) { *v = 5; return 0; }
@@ -113,6 +116,7 @@ inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }
 inline int __ffs(int x) { return __builtin_ffs(x); }
 inline int __ffsll(long long x) { return __builtin_ffsll(x); }
 inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) { return __atomic_fetch_add(p, v, __ATOMIC_RELAXED); }
+inline unsigned atomicAdd(unsigned* p, unsigned v) { return __atomic_fetch_add(p, v, __ATOMIC_RELAXED); }
 inline void __nanosleep(unsigned) { std::this_thread::yield(); }
 
 template <class... Exp, class... Act>

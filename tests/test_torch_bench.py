@@ -30,7 +30,7 @@ def test_row_keys_and_counts_against_jax(tmp_path, monkeypatch, capsys):
     layouts = []
     real = DeviceFMIndex.host_tables
     monkeypatch.setattr(DeviceFMIndex, "host_tables", staticmethod(
-        lambda fm: layouts.append(fm) or real(fm)))
+        lambda fm, **kw: layouts.append(fm) or real(fm, **kw)))
     row = bench.run_config("tiny_120kb", 120_000, bench_dir=str(tmp_path),
                            reps=3, device="cpu")
     assert len(layouts) == 1          # once, before the warm-up

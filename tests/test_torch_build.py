@@ -12,9 +12,9 @@ from tests.torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 def test_every_kernel_source_is_built():
     srcs = cuda_build.sources()
-    assert set(srcs) == {"dp", "gather", "probe", "seed"}
+    assert set(srcs) == {"dp", "gather", "layout", "probe", "seed"}
     paths = {n: cuda_build._lib_path(p) for n, p in srcs.items()}
-    assert len(set(paths.values())) == 4
+    assert len(set(paths.values())) == 5
     for name, path in paths.items():
         assert os.path.dirname(path) == cuda_build._BUILD_DIR
         assert os.path.basename(path).startswith(f"libgsalign_{name}_")

@@ -935,3 +935,58 @@ def test_exp_seedcost_and_exp_sweep_on_card(card, pair_46):
     assert [r["form"] for r in rows] == ["one-call"] * 3 + ["two-call"]
     assert all(r["us"] > 0 for r in rows)
     assert probe.gather_sweep.launches == n0 + 4 * 4
+
+
+def random_genome(lens, seed):
+    rng = np.random.default_rng(seed)
+    return Genome(names=[f"c{i}" for i in range(len(lens))],
+                  lengths=np.asarray(lens),
+                  offsets=np.concatenate([[0], np.cumsum(lens)[:-1]]),
+                  holes=[], codes_fwd=rng.integers(0, 4, sum(lens)).astype(
+                      np.uint8))
+
+
+def card_layout(fm, dev):
+    """from_host(fm, dev) with a recorder bound: (the tables, init10_rows
+    launches, layout.init10_card counted)."""
+    from gsalign_tpu_torch.ops import layout_cuda
+    from gsalign_tpu_torch.utils import trace
+    rec = trace.Recorder()
+    n0 = layout_cuda.init10_rows.launches
+    with trace.bind(rec):
+        dfm = rank.DeviceFMIndex.from_host(fm, dev)
+    torch.cuda.synchronize()
+    return (dfm, layout_cuda.init10_rows.launches - n0,
+            rec.counters.get("layout.init10_card", 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sa_intv", [1, 8])
+def test_init10_rows_laid_out_on_card_equal_the_cpu_layout(card, sa_intv):
+    fm = build_fmindex(random_genome((120_000, 33_333), sa_intv),
+                       sa_intv=sa_intv)
+    got, launches, counted = card_layout(fm, card)
+    assert got.init_order == 10 and (launches, counted) == (1, 1)
+    want = rank.DeviceFMIndex.from_host(fm, "cpu")
+    assert torch.equal(got.comb_pairs.cpu(), want.comb_pairs)
+    assert torch.equal(got.init_corr.cpu(), want.init_corr)
+    again, launches, counted = card_layout(fm, card)      # a cache hit
+    assert again is got and (launches, counted) == (0, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [10, 12])
+def test_a_c12_carrying_index_launches_no_init10_rows(card, monkeypatch,
+                                                      order):
+    import dataclasses
+    from gsalign_tpu_torch.index.fmindex import _build_c12
+    g = random_genome((20_000,), 7)
+    fm = build_fmindex(g)
+    fm = dataclasses.replace(fm, c12=_build_c12(g.codes_fwd_rc(),
+                                                fm.seq_len))
+    if order == 12:
+        monkeypatch.setattr(rank, "INIT12_MIN_SEQLEN", fm.seq_len - 1)
+    got, launches, counted = card_layout(fm, card)
+    assert got.init_order == order and (launches, counted) == (0, 0)
+    want = rank.DeviceFMIndex.from_host(fm, "cpu")
+    assert torch.equal(got.comb_pairs.cpu(), want.comb_pairs)

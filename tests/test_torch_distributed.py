@@ -173,9 +173,9 @@ def test_threaded_chromosomes_byte_identical(tmp_path, monkeypatch):
     layouts = []
     real = align_mod.DeviceFMIndex.host_tables
 
-    def counting(fm_):
+    def counting(fm_, **kw):
         layouts.append(fm_)
-        return real(fm_)
+        return real(fm_, **kw)
     monkeypatch.setattr(align_mod.DeviceFMIndex, "host_tables",
                         staticmethod(counting))
     cfg = dataclasses.replace(AlignConfig(), thread_num=2)

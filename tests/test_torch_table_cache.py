@@ -25,9 +25,9 @@ def layouts(monkeypatch):
     seen = []
     real = rank.DeviceFMIndex.host_tables
 
-    def counting(fm):
+    def counting(fm, **kw):
         seen.append(fm)
-        return real(fm)
+        return real(fm, **kw)
     monkeypatch.setattr(rank.DeviceFMIndex, "host_tables",
                         staticmethod(counting))
     return seen
