@@ -16,9 +16,20 @@ the program derived and counts the answers that disagree:
                ksw_extz2_sse call) is below the optimum of a plain global
                affine-gap alignment of the same bases. A window lies inside
                one gap between two seeds, where the aligner's DP is global,
-               so an optimal DP gives the optimum there. (Under -sen a
-               seed cut under min_seed_length by overlap removal can anchor
-               inside a window, which breaks this premise.)
+               so an optimal DP gives the optimum there. Under -sen a seed
+               cut under min_seed_length by overlap removal stays an anchor
+               inside a window; so in sensitive mode a window below the
+               optimum is judged through its anchors (`anchor_runs`): the
+               runs of matching columns of its alignment on a diagonal other
+               than the flanking runs' own that lie in an exact common run
+               of at least min_seed_length bases (with min_seed_length - 1
+               bases of flank on each side), where a seed of the program's
+               kind lies. Its score must then equal the optimum through
+               them: the pieces between them aligned optimally, plus their
+               matches. A window without such runs is held to the plain
+               optimum.
+  dp_anchored  (printed, not compared) the windows below the plain optimum
+               that equal the optimum through their anchors.
   vcf_bad      the VCF against the variants the MAF blocks imply (every
                mismatching column a substitution; every gap run an insertion
                or deletion at the base before it), as multisets of
@@ -35,9 +46,12 @@ the program derived and counts the answers that disagree:
                that carries its position, the position.
   snv_missed   planted substitutions at least 50 bases from any other
                planted variant, from a chromosome's ends and from the
-               inverted span, that the VCF does not report.
+               inverted span, that the VCF does not report; those inside
+               the reference span of a window counted in dp_anchored are
+               not judged (its alignment is the one through its anchors),
+               and are counted as snv_anchored (printed, not compared).
 
-Each number is a count of disagreements; the limit of each is 0.
+Each number compared is a count of disagreements, with the limit 0.
 """
 
 from __future__ import annotations
@@ -147,9 +161,10 @@ def _segments(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
 
 
 def gapped_windows(b: MafBlock, anchor: int):
-    """(ref bases, query bases, the program's score) of every window of a
-    block: a maximal stretch of columns between two runs of at least
-    `anchor` matching columns, holding a gap."""
+    """(ref bases, query bases, the program's score, first column, end
+    column) of every window of a block: a maximal stretch of columns
+    between two runs of at least `anchor` matching columns, holding a
+    gap."""
     a1, a2 = b.r_row, b.q_row
     s, e = _runs((a1 == a2) & (a1 != GAP))
     long_ = (e - s) >= anchor
@@ -173,8 +188,8 @@ def gapped_windows(b: MafBlock, anchor: int):
         col = col - h * GAP_EXTEND - opens * GAP_OPEN
     scores = np.add.reduceat(col, starts)
     ends = np.concatenate([starts[1:], [cols.shape[0]]])
-    return [(c1[x:y][~h1[x:y]], c2[x:y][~h2[x:y]], int(sc))
-            for x, y, sc in zip(starts, ends, scores)]
+    return [(c1[x:y][~h1[x:y]], c2[x:y][~h2[x:y]], int(sc), int(c0), int(c))
+            for x, y, sc, c0, c in zip(starts, ends, scores, lo, hi)]
 
 
 def optimal_scores(pairs) -> np.ndarray:
@@ -222,18 +237,78 @@ def optimal_scores(pairs) -> np.ndarray:
     return out
 
 
-def check_dp(blocks: List[MafBlock], anchor: int) -> dict:
-    """{windows, dp_subopt}: gapped windows, and those below the optimum."""
-    pairs, scores = [], []
+def anchor_runs(b: MafBlock, lo: int, hi: int, k: int) -> list:
+    """The anchors of the window of columns [lo, hi) of a block: each run
+    of matching columns in it on a diagonal other than the flanking runs'
+    own (0 and the right flank's) that lies in an exact common run of at
+    least k bases of the window's reference and query bases with k - 1
+    bases of flank on each side (the flanking runs' matching columns), as
+    (reference offset, query offset, length) from the window's start, in
+    order."""
+    a1, a2 = b.r_row, b.q_row
+    f1, f2 = a1[lo - (k - 1):hi + (k - 1)], a2[lo - (k - 1):hi + (k - 1)]
+    r, q = f1[f1 != GAP], f2[f2 != GAP]
+    c1, c2 = a1[lo:hi], a2[lo:hi]
+    # reference and query offsets of each column within the window
+    ro = np.cumsum(c1 != GAP) - (c1 != GAP)
+    qo = np.cumsum(c2 != GAP) - (c2 != GAP)
+    right = len(q) - len(r)
+    out = []
+    for s, e in zip(*_runs((c1 == c2) & (c1 != GAP))):
+        ri, qi, n = int(ro[s]), int(qo[s]), int(e - s)
+        if qi - ri in (0, right):
+            continue
+        i, j = ri + k - 1, qi + k - 1
+        while i > 0 and j > 0 and r[i - 1] == q[j - 1]:
+            i, j = i - 1, j - 1
+        end_i, end_j = ri + n + k - 1, qi + n + k - 1
+        while end_i < len(r) and end_j < len(q) and r[end_i] == q[end_j]:
+            end_i, end_j = end_i + 1, end_j + 1
+        if end_i - i >= k:
+            out.append((ri, qi, n))
+    return out
+
+
+def check_dp(blocks: List[MafBlock], anchor: int, sensitive: bool = False):
+    """({windows, dp_subopt, dp_anchored}, spans): gapped windows, those
+    below the optimum, and (sensitive mode) those below it that equal the
+    optimum through their anchors (`anchor_runs`), which dp_subopt leaves
+    out; spans: the reference spans [(chromosome, lo, hi)] of the last."""
+    found, pairs, scores = [], [], []
     for b in blocks:
         if b.score == 1:          # a duplicate: the aligner's output as-is
             continue
-        for w1, w2, sc in gapped_windows(b, anchor):
+        for w1, w2, sc, lo, hi in gapped_windows(b, anchor):
+            found.append((b, lo, hi))
             pairs.append((w1, w2))
             scores.append(sc)
-    opt = optimal_scores(pairs)
-    return {"windows": len(pairs),
-            "dp_subopt": int((np.asarray(scores, np.int64) < opt).sum())}
+    low = np.flatnonzero(np.asarray(scores, np.int64) < optimal_scores(pairs))
+    spans = []
+    if sensitive:
+        # each window below the optimum, split at its anchors into pieces
+        pieces, owner, matched = [], [], {}
+        for w in low:
+            (b, lo, hi), (w1, w2) = found[w], pairs[w]
+            runs = anchor_runs(b, lo, hi, anchor)
+            if not runs:
+                continue
+            ri = qi = 0
+            for r0, q0, n in runs + [(len(w1), len(w2), 0)]:
+                pieces.append((w1[ri:r0], w2[qi:q0]))
+                owner.append(w)
+                ri, qi = r0 + n, q0 + n
+            matched[w] = sum(n for _, _, n in runs)
+        best = dict(matched)
+        for w, sc in zip(owner, optimal_scores(pieces)):
+            best[w] += int(sc)
+        for w, through in best.items():
+            b, lo, hi = found[w]
+            if scores[w] == through:
+                r0 = b.r_start + int(np.count_nonzero(b.r_row[:lo] != GAP))
+                spans.append((b.ref, r0, r0 + int(
+                    np.count_nonzero(b.r_row[lo:hi] != GAP))))
+    return {"windows": len(pairs), "dp_subopt": int(low.size) - len(spans),
+            "dp_anchored": len(spans)}, spans
 
 
 _VCF_LINE = re.compile(rb"^([^#\t\n][^\t\n]*)\t(\d+)\t[^\t\n]*\t([^\t\n]+)\t"
@@ -356,13 +431,16 @@ def check_vcf(recs: dict, bad: int, blocks: List[MafBlock]) -> dict:
 
 
 def check_snvs(vcf_recs: dict, ref: Dict[str, np.ndarray], truths: dict,
-               margin: int = 50, edge: int = 1000) -> dict:
-    """{isolated_snvs, snv_missed}: planted substitutions at least `margin`
-    bases from every other planted variant, `edge` bases from the
-    chromosome's ends and from the inverted span, and those the VCF lacks.
-    vcf_recs: parse_vcf's records; truths: {reference chromosome: Truth}."""
+               left_out=(), margin: int = 50, edge: int = 1000) -> dict:
+    """{isolated_snvs, snv_missed, snv_anchored}: planted substitutions at
+    least `margin` bases from every other planted variant, `edge` bases
+    from the chromosome's ends and from the inverted span, and those the
+    VCF lacks. vcf_recs: parse_vcf's records; truths: {reference
+    chromosome: Truth}; left_out: the reference spans [(chromosome, lo,
+    hi)] of the windows check_dp counted in dp_anchored, whose
+    substitutions are not judged and are counted as snv_anchored."""
     names = vcf_recs["snv_names"]
-    n = missed = 0
+    n = missed = anchored = 0
     for name, t in truths.items():
         r = ref[name]
         ev = np.sort(np.concatenate([t.snv_pos, t.del_pos, t.ins_pos,
@@ -376,6 +454,11 @@ def check_snvs(vcf_recs: dict, ref: Dict[str, np.ndarray], truths: dict,
         lo, hi = t.inverted_ref
         ok = (before >= margin) & (after >= margin) & (p >= edge) \
             & (p < len(r) - edge) & ((p < lo - edge) | (p >= hi + edge))
+        for c, a, z in left_out:
+            if c == name:
+                inside = ok & (p >= a) & (p < z)
+                anchored += int(inside.sum())
+                ok &= ~inside
         n += int(ok.sum())
         if name not in names:
             missed += int(ok.sum())
@@ -384,7 +467,8 @@ def check_snvs(vcf_recs: dict, ref: Dict[str, np.ndarray], truths: dict,
                        t.snv_alt[ok].astype(np.int64),
                        r[p[ok]].astype(np.int64))
         missed += int((~np.isin(keys, vcf_recs["snv"])).sum())
-    return {"isolated_snvs": n, "snv_missed": missed}
+    return {"isolated_snvs": n, "snv_missed": missed,
+            "snv_anchored": anchored}
 
 
 class TextKmers:

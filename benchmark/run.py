@@ -17,8 +17,8 @@ reach the aligner). The run:
    completed, the queries cycled from the pool, until the last pair that
    started before --seconds has completed. Every pair runs the program's
    MAF and VCF writers in full into links to the null device, except the
-   judged pairs (drawn from --seed), whose writers run into named pipes
-   that this process reads into memory; nothing is written to disk;
+   judged pairs (drawn from --seed), whose writers run into links to
+   in-memory files of this process; nothing is written to disk;
 3. --trace 1 runs the window under torch.profiler and reports the
    per-layer metrics (benchmark/metrics/<name>.py, one reader a metric),
    --trace 0 the end-to-end ones;
@@ -42,10 +42,8 @@ import gc  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
-import select  # noqa: E402
 import sys  # noqa: E402
 import tempfile  # noqa: E402
-import threading  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -113,42 +111,26 @@ def metric_reader(name: str,
 
 
 class Capture:
-    """What the program writes to one named pipe, read into memory by a
-    thread. The pipe is held open for reading and writing here, so the
-    program's writers, which open and close the path once per write, never
-    wait for a reader and never meet a closed one."""
+    """What the program writes to one path, kept in memory: the path is a
+    link to an anonymous in-memory file of this process (memfd), which the
+    program's writers, opening the path once per write, fill at memory
+    speed, with no reader to wait for and nothing written to disk."""
 
     def __init__(self, path: str):
-        os.mkfifo(path)
+        self.fd = os.memfd_create(os.path.basename(path))
         self.path = path
-        self.fd = os.open(path, os.O_RDWR)
-        self.chunks = []
-        self._stop = threading.Event()
-        self._thread = threading.Thread(target=self._run, daemon=True)
-        self._thread.start()
-
-    def _run(self):
-        while not self._stop.is_set():
-            if select.select([self.fd], [], [], 0.05)[0]:
-                self.chunks.append(os.read(self.fd, 1 << 20))
+        os.symlink(f"/proc/self/fd/{self.fd}", path)
 
     def close(self) -> bytes:
-        """Every byte written so far (call once the writers are done);
-        ends the thread."""
-        self._stop.set()
-        self._thread.join()
-        os.set_blocking(self.fd, False)
-        while True:
-            try:
-                b = os.read(self.fd, 1 << 20)
-            except BlockingIOError:
-                break
-            if not b:
-                break
-            self.chunks.append(b)
+        """Every byte written (call once the writers are done)."""
+        size = os.fstat(self.fd).st_size
+        chunks, off = [], 0
+        while off < size:
+            chunks.append(os.pread(self.fd, size - off, off))
+            off += len(chunks[-1])
         os.close(self.fd)
         os.unlink(self.path)
-        return b"".join(self.chunks)
+        return b"".join(chunks)
 
 
 def seed_from(*parts) -> list:
@@ -226,17 +208,13 @@ class Bench:
         self.sync()
 
     def ensure_index(self) -> str:
-        """The prefix of the configuration's index under benchmark/.cache,
-        built with the program's build_fmindex and save_index where it is
-        missing (a checkout's first run)."""
-        import hashlib
+        """The prefix of the reference genome's index under benchmark/.cache
+        (index_dir), built with the program's build_fmindex and save_index
+        where it is missing (a checkout's first run)."""
         from gsalign_tpu_torch.genome.packing import pack_genome
         from gsalign_tpu_torch.index.fmindex import build_fmindex
         from gsalign_tpu_torch.index.io import index_loadable, save_index
-        key = hashlib.sha256(json.dumps(
-            [self.cfg_file["chromosomes"], self.cfg_file["genome_seed"]],
-            sort_keys=True).encode()).hexdigest()[:16]
-        d = os.path.join(self.cache, "index", f"{self.cfg_file['name']}-{key}")
+        d = index_dir(self.cache, self.cfg_file)
         prefix = os.path.join(d, "ref")
         if not index_loadable(prefix):
             os.makedirs(d, exist_ok=True)
@@ -370,13 +348,15 @@ class Bench:
                    "maf_bad": bad + ref_mod.check_maf(
                        blocks, ref, qry, acfg.min_seq_idy)}
             t.append(time.time())
-            res.update(ref_mod.check_dp(blocks, acfg.min_seed_length))
+            dp, anchored = ref_mod.check_dp(blocks, acfg.min_seed_length,
+                                            acfg.sensitive)
+            res.update(dp)
             t.append(time.time())
             recs, bad = ref_mod.parse_vcf(p.pop("vcf"))
             res.update(ref_mod.check_vcf(recs, bad, blocks))
             truths = {name: tr for (name, _), tr in
                       zip(self.reference, self.truths[p["query"]])}
-            res.update(ref_mod.check_snvs(recs, ref, truths))
+            res.update(ref_mod.check_snvs(recs, ref, truths, anchored))
             t.append(time.time())
             lanes, got = self.seed_lanes(p)
             res.update(ref_mod.check_seeds(
@@ -434,6 +414,17 @@ class Bench:
     def close(self):
         import shutil
         shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def index_dir(cache: str, cfg: dict) -> str:
+    """The directory of a configuration's index: keyed by its genome
+    (chromosomes and genome_seed) alone, so configurations that differ only
+    in the aligner's settings share one index."""
+    import hashlib
+    key = hashlib.sha256(json.dumps(
+        [cfg["chromosomes"], cfg["genome_seed"]],
+        sort_keys=True).encode()).hexdigest()[:16]
+    return os.path.join(cache, "index", key)
 
 
 def write_fasta(path: str, records, width: int = 70) -> None:

@@ -5,10 +5,9 @@ last runs in a ring (recent_runs): per span name [count, wall seconds,
 self seconds, thread CPU seconds], and the run's counters. A pair of the
 window is one compare_genomes run: the run whose start lies in the pair's
 [start, end]. A program without the ring, or a window in which a completed
-pair has no run or more than one, gives None. The judged pair's writers
-run into the benchmark's pipes, which stall its sink.close and vcf.write
-for the harness's reading: its run is found, like every pair's, and left
-out of the averages.
+pair has no run or more than one, gives None. The averages are over every
+completed pair, the judged ones too (their writers fill in-memory files at
+memory speed), as the top-level span metrics' are.
 """
 
 from __future__ import annotations
@@ -19,9 +18,8 @@ WALL, CPU = 1, 3      # fields of a span name's entry in a run's summary
 
 
 def pair_runs(ctx):
-    """The run summary of each completed pair of the window that was not
-    judged; None if a completed pair has no run or more than one, or if
-    every pair was judged."""
+    """The run summary of each completed pair of the window; None if a
+    completed pair has no run or more than one."""
     try:
         from gsalign_tpu_torch.utils.trace import recent_runs
     except ImportError:
@@ -36,9 +34,8 @@ def pair_runs(ctx):
         mine = [r for r in runs if lo <= r["start_ns"] <= hi]
         if len(mine) != 1:
             return None
-        if not p.get("judged"):
-            out.append(mine[0])
-    return out or None
+        out.append(mine[0])
+    return out
 
 
 def seconds_per_pair(ctx, wall=(), cpu=()):

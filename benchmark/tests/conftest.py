@@ -28,31 +28,32 @@ def _cuda_only(request):
 
 
 def write_tiny_root(root, judge_from: int = 1, lengths=(50_000, 20_000)):
-    """A checkout-like directory holding a BENCHMARK.json whose cells run
-    one small configuration (chromosomes of `lengths`) under the real
-    traffic mixes, each judging one of its first judge_from pairs; and its
-    traffic directory. Returns (root, traffic dir)."""
+    """A checkout-like directory holding a BENCHMARK.json whose cells are
+    the real ones at a small size: each configuration's genome cut to
+    chromosomes of `lengths` (its aligner's settings kept), each cell named
+    tiny.<its traffic mix> under the real mixes, each judging one of its
+    first judge_from pairs; and its traffic directory. Returns (root,
+    traffic dir)."""
     import json
     with open(os.path.join(ROOT, "BENCHMARK.json")) as fh:
         bench = json.load(fh)
-    with open(os.path.join(BENCH, "configs", "synth_celegans.json")) as fh:
-        cfg = json.load(fh)
-    cfg["name"] = "tiny"
-    cfg["chromosomes"] = [[f"c{i}", n] for i, n in enumerate(lengths)]
-    cfg["genome_seed"] = 5
     os.makedirs(os.path.join(root, "cfg"), exist_ok=True)
-    with open(os.path.join(root, "cfg", "tiny.json"), "w") as fh:
-        json.dump(cfg, fh)
-    bench["configs"] = [{"name": "tiny", "source": "https://example.org",
-                         "file": "cfg/tiny.json", "reduced": [],
-                         "why": "small"}]
+    for c in bench["configs"]:
+        with open(os.path.join(ROOT, c["file"])) as fh:
+            cfg = json.load(fh)
+        name = "tiny_" + c["name"]
+        cfg.update(name=name, genome_seed=5, chromosomes=[
+            [f"c{i}", n] for i, n in enumerate(lengths)])
+        with open(os.path.join(root, "cfg", name + ".json"), "w") as fh:
+            json.dump(cfg, fh)
+        c.update(name=name, file=f"cfg/{name}.json", reduced=[])
+    renamed = {w["name"]: "tiny." + w["traffic"] for w in bench["workloads"]}
     for w in bench["workloads"]:
-        w["config"] = "tiny"
-        w["name"] = "tiny." + w["traffic"]
+        w["config"] = "tiny_" + w["config"]
+        w["name"] = renamed[w["name"]]
     for m in bench["end_to_end"] + bench["per_layer"]:
         if "workloads" in m:
-            m["workloads"] = sorted({"tiny." + x.split(".", 1)[1]
-                                     for x in m["workloads"]})
+            m["workloads"] = sorted(renamed[x] for x in m["workloads"])
     with open(os.path.join(root, "BENCHMARK.json"), "w") as fh:
         json.dump(bench, fh)
     tdir = os.path.join(root, "traffic")

@@ -129,8 +129,11 @@ def test_dp_check_finds_a_gap_placed_worse_than_the_optimum():
     # a deletion placed where it costs two mismatches more
     bad = block((anchor + "CAGGTACGT" + anchor).encode(),
                 (anchor + "-CAGGTCGT" + anchor).encode())
-    assert R.check_dp([good], 15) == {"windows": 1, "dp_subopt": 0}
-    assert R.check_dp([bad], 15) == {"windows": 1, "dp_subopt": 1}
+    for sensitive in (False, True):
+        assert R.check_dp([good], 15, sensitive) == (
+            {"windows": 1, "dp_subopt": 0, "dp_anchored": 0}, [])
+        assert R.check_dp([bad], 15, sensitive) == (
+            {"windows": 1, "dp_subopt": 1, "dp_anchored": 0}, [])
 
 
 def test_vcf_check_against_the_alignment():
@@ -175,3 +178,83 @@ def test_plain_seed_scan_on_a_known_text(sensitive):
     moved = [(s, ln, f, p + 1 if p >= 0 else p) for s, ln, f, p in hits]
     assert R.check_seeds(ref, lanes, {0: moved}, min_len, 100,
                          sensitive)["seed_bad"] == len(hits)
+
+
+# seed 3100000233's judged pair under -sen: a planted C>G inside a tandem
+# repeat aligned as a 4-base insertion, 5 matches on the repeat's diagonal
+# +4 (a seed cut by overlap removal) and a 4-base deletion
+SEN_REF = "TTGT----GATGGATGCATGCATG"
+SEN_QRY = "TTGTGATGGATGG----ATGCATG"
+SEN_START = 1_000
+
+
+def sen_case(ref_row=SEN_REF):
+    """The block between two random 20-base flanks at SEN_START of a
+    3,000-base chromosome "r", the chromosome, and the truth of the one
+    planted substitution (the C at the rows' 13th reference base)."""
+    rng = np.random.default_rng(17)
+    left, right = (gen.DNA[rng.integers(0, 4, 20)].tobytes() for _ in "lr")
+    b = block(left + ref_row.encode() + right,
+              left + SEN_QRY.encode() + right, r_start=SEN_START)
+    chrom = gen.DNA[rng.integers(0, 4, 3_000)]
+    chrom[SEN_START:SEN_START + b.r_size] = b.r_row[b.r_row != R.GAP]
+    p = SEN_START + len(left) + 12
+    assert chrom[p] == ord("C")
+    none = np.zeros(0, np.int64)
+    truth = gen.Truth(np.array([p]), np.array([ord("G")], np.uint8), none,
+                      none, none, none, np.zeros(1, np.int64),
+                      np.zeros(0, np.uint8), (0, 0), (0, 0))
+    return b, {"r": chrom}, {"r": truth}
+
+
+def snv_check(b, ref, truths, left_out=()):
+    vcf = b"##fileformat=VCFv4.1\n"        # the indels hold no substitution
+    return R.check_snvs(R.parse_vcf(vcf)[0], ref, truths, left_out)
+
+
+def test_an_anchored_window_is_judged_through_its_anchor():
+    b, ref, truths = sen_case()
+    # the window: 9 reference bases between the two runs; its one anchor,
+    # the 5 matches on diagonal +4, in a 12-base exact run there
+    assert R.anchor_runs(b, 24, 37, 10) == [(0, 4, 5)]
+    lo = SEN_START + 20 + 4
+    assert R.check_dp([b], 10, sensitive=True) == (
+        {"windows": 1, "dp_subopt": 0, "dp_anchored": 1}, [("r", lo, lo + 9)])
+    assert snv_check(b, ref, truths, [("r", lo, lo + 9)]) == {
+        "isolated_snvs": 0, "snv_missed": 0, "snv_anchored": 1}
+    # not sensitive: every check reads as it did before the rule
+    assert R.check_dp([b], 10) == (
+        {"windows": 1, "dp_subopt": 1, "dp_anchored": 0}, [])
+    assert snv_check(b, ref, truths) == {
+        "isolated_snvs": 1, "snv_missed": 1, "snv_anchored": 0}
+
+
+def test_a_window_without_a_shifted_run_is_judged():
+    # the run on diagonal +4 (GATGGATGCATG in both) broken at its 6th base
+    broken = SEN_REF[:13] + "C" + SEN_REF[14:]
+    for sensitive in (True, False):
+        b, ref, truths = sen_case(broken)
+        assert R.anchor_runs(b, 24, 37, 10) == []
+        assert R.check_dp([b], 10, sensitive) == (
+            {"windows": 1, "dp_subopt": 1, "dp_anchored": 0}, [])
+        assert snv_check(b, ref, truths)["snv_missed"] == 1
+
+
+def test_a_window_below_the_optimum_through_its_anchor_is_judged():
+    """An anchor in a tandem repeat (the insertion GATG repeats the left
+    flank, so the 5 matches on diagonal +4 lie in a 10-base exact run),
+    and after it a piece aligned worse than its optimum: dp_subopt."""
+    rng = np.random.default_rng(5)
+    left = gen.DNA[rng.integers(0, 4, 12)].tobytes() + b"GATGGATG"
+    right = gen.DNA[rng.integers(0, 4, 20)].tobytes()
+    piece = {"worse": ("CAGGTACGT", "-CAGGTCGT"),
+             "optimal": ("CAGGTACGT", "CAGGT-CGT")}
+    got = {}
+    for name, (pr, pq) in piece.items():
+        b = block(left + b"----GATGGATGC" + pr.encode() + right,
+                  left + b"GATGGATGG----" + pq.encode() + right)
+        got[name] = R.check_dp([b], 10, sensitive=True)[0]
+        assert R.anchor_runs(b, 20, 39, 10) == [(0, 4, 5)]
+    assert got["worse"] == {"windows": 1, "dp_subopt": 1, "dp_anchored": 0}
+    assert got["optimal"] == {"windows": 1, "dp_subopt": 0,
+                              "dp_anchored": 1}

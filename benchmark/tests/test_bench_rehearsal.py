@@ -1,6 +1,7 @@
 """Whole runs of a small cell on the CPU: the rehearsal, the control, and
 the timed path broken underneath in each way a cell of this benchmark can
-be, each of which `correct` must catch."""
+be, each of which `correct` must catch, in the default and in the
+sensitive (-sen) mode."""
 
 import json
 import subprocess
@@ -12,6 +13,7 @@ import torch
 from conftest import BENCH, ROOT, write_tiny_root
 
 SEED = 2 ** 31 + 1234
+SEN = "tiny.warm_long"      # the cell whose configuration states -sen
 
 
 @pytest.fixture(scope="module")
@@ -54,13 +56,19 @@ def test_a_run_in_a_fresh_process_is_correct_and_loads_no_jax(tiny):
     assert res["counts"]["seed_hits"] > 0 and res["counts"]["windows"] > 0
 
 
-@pytest.mark.parametrize("cell", ["tiny.cold"])
+@pytest.mark.parametrize("cell", ["tiny.cold", SEN])
 def test_the_other_mixes_are_correct(tiny, cell):
     res = run_cell(tiny, cell)
     assert res["correct"] is True
     assert res["attempted"] >= 1 and res["failed"] == 0
     assert {"maf_bad", "dp_subopt", "vcf_bad", "snv_missed",
             "seed_bad"} <= set(res["checks"])
+    # the windows judged through their anchors, and the substitutions in
+    # them, are printed and not compared; only -sen has anchors
+    assert {"dp_anchored", "snv_anchored"} <= set(res["counts"])
+    assert "dp_anchored" not in res["checks"]
+    if cell != SEN:
+        assert res["counts"]["dp_anchored"] == 0
 
 
 def test_a_traced_run_reports_its_per_layer_metrics(tiny):
@@ -72,9 +80,10 @@ def test_a_traced_run_reports_its_per_layer_metrics(tiny):
     assert "device_ops" in res["breakdown"]
 
 
-def test_the_control_is_not_correct(tiny):
+@pytest.mark.parametrize("cell", ["tiny.warm", SEN])
+def test_the_control_is_not_correct(tiny, cell):
     import control
-    res = run_cell(tiny, overrides=control.CONTROL)
+    res = run_cell(tiny, cell, overrides=control.CONTROL)
     assert res["correct"] is False
     assert res["checks"]["seed_bad"]["value"] > 0
 
@@ -144,10 +153,11 @@ def seed_record_altered(monkeypatch):
     monkeypatch.setattr(seeding, "_records", alter)
 
 
+@pytest.mark.parametrize("cell", ["tiny.warm", SEN])
 @pytest.mark.parametrize("fault", [unchanged_step, half_batch,
                                    maf_base_altered, vcf_answer_altered,
                                    seed_record_altered])
-def test_a_broken_timed_path_is_not_correct(tiny, monkeypatch, fault):
+def test_a_broken_timed_path_is_not_correct(tiny, monkeypatch, fault, cell):
     fault(monkeypatch)
-    res = run_cell(tiny)
+    res = run_cell(tiny, cell)
     assert res["correct"] is False

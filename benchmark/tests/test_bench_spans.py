@@ -1,7 +1,7 @@
 """The readers of the program's own spans and counters (span_lib and the
 metrics that use it): traced runs of the small cells report each of them,
 a pair whose run is missing from the program's ring, or doubled there,
-reads None, and the judged pair is left out of the averages."""
+reads None, and the judged pair joins the averages like any other."""
 
 import pytest
 import torch
@@ -64,10 +64,10 @@ def test_a_pair_without_exactly_one_run_reads_none():
     assert run.metric_reader("seed_host_s")(one) > 0
 
 
-def test_the_judged_pair_is_left_out_of_the_averages():
-    """The judged pair's run must be in the ring like any other, but its
-    writers run into the benchmark's pipes, so its spans and counters do
-    not join the averages; a window of judged pairs alone reads None."""
+def test_the_judged_pair_joins_the_averages():
+    """The judged pair's run must be in the ring like any other, and its
+    spans and counters join the averages (its writers fill in-memory
+    files); a window of the judged pair alone reads it."""
     import run
     from gsalign_tpu_torch.utils import trace
     for k in range(2):
@@ -81,8 +81,8 @@ def test_the_judged_pair_is_left_out_of_the_averages():
     other = {"spans": {}, "start": mid, "end": b["start_ns"] / 1e9 + 1e-3,
              "judged": False}
     h2d = run.metric_reader("h2d_mb")
-    assert h2d({"pairs": [judged, other], "window_s": 1.0}) == 20 / 1e6
-    assert h2d({"pairs": [judged], "window_s": 1.0}) is None
+    assert h2d({"pairs": [judged, other], "window_s": 1.0}) == 15 / 1e6
+    assert h2d({"pairs": [judged], "window_s": 1.0}) == 10 / 1e6
     # the judged pair's run is still required
     lost = dict(judged, end=a["start_ns"] / 1e9 - 5e-4)
     assert h2d({"pairs": [lost, other], "window_s": 1.0}) is None

@@ -112,3 +112,26 @@ def test_a_new_cell_is_found_from_data_files_alone(tmp_path):
         "def read(ctx):\n    return 2.5 * ctx['window_s']\n")
     read = run.metric_reader("new_metric_s", str(mdir))
     assert read({"window_s": 2}) == 5.0
+
+
+def test_the_sensitive_cell_is_synth_celegans_in_sen_mode():
+    """synth_celegans_sen: synth_celegans's genome and mutants with -sen
+    stated, its first pair judged, on the same index."""
+    import run
+
+    def config(name):
+        with open(os.path.join(BENCH, "configs", name + ".json")) as fh:
+            return json.load(fh)
+    base, sen = config("synth_celegans"), config("synth_celegans_sen")
+    for k in ("chromosomes", "genome_seed", "bases", "mutation", "reduced"):
+        assert sen[k] == base[k], k
+    assert sen["align"] == dict(base["align"], sensitive=True)
+    s = run.Spec("synth_celegans_sen.warm_long")
+    assert s.traffic["judge_from"] == 1 and s.traffic["index"] == "resident"
+    assert [m["name"] for m in s.end_to_end] == ["align_mbp_per_s",
+                                                 "setup_s"]
+    # every per-layer metric of the default mode's warm cell
+    assert [m["name"] for m in s.per_layer] == [
+        m["name"] for m in run.Spec("synth_celegans.warm").per_layer]
+    assert run.index_dir("c", sen) == run.index_dir("c", base) \
+        != run.index_dir("c", config("synth_ecoli"))
